@@ -4,12 +4,18 @@
     python3 chip_smoke.py
 
 Builds every kernel in ``multimodalfilter_tpu_torch/csrc`` with nvcc (into
-``build/``), holds each against its plain PyTorch version at the main path's
-shapes, drives the main path — ``DoorCrossmodalParticleFilter`` in eval mode,
-``forward_loop`` at N=16, T=100, M=300, full width, seeded random weights —
-through the user's entry points, checks that it went through the kernels and
-agrees with the same model run on the CPU through the plain versions, and
-times it. TF32 is off for matmuls and cuDNN throughout, so fp32 means fp32.
+``build/``) and holds each against its plain PyTorch version at the main
+paths' shapes. Then it drives the port's two paths through the user's entry
+points, with seeded random weights at full width, checks that each went
+through its kernels, and times them:
+
+- eval: ``DoorCrossmodalParticleFilter.forward_loop`` at N=16, T=100, M=300
+  through B1, against the same model run on the CPU through the plain tail;
+- training: ``train_helpers.train_e2e`` (BPTT, B=32, L=16, M=30) through the
+  B2 kernels, forward and backward, with one optimizer step held against the
+  same step on the CPU through the plain tail.
+
+TF32 is off for matmuls and cuDNN throughout, so fp32 means fp32.
 
 Prints one JSON line per phase, the card's name and power limit as
 nvidia-smi gives them, a ``kernels`` line, and as its last line
@@ -23,6 +29,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Main path (bench.py's shapes): N trajectories, T steps, M eval particles.
@@ -35,6 +42,35 @@ B1_SHAPES = [(16, 300, 3), (16, 100, 3), (512, 100, 3),
              (16, 1, 2), (16, 1000, 2), (16, 1024, 2)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+
+# Training path (bench.py make_train_program's shapes): batch B of windows
+# of L steps, M train particles; the data are TRAJ trajectories of TRAJ_T
+# steps (32 x floor(100/16) = 192 windows: 6 optimizer steps at B=32).
+TRAIN_B, TRAIN_L, TRAIN_M = 32, 16, 30
+TRAIN_SAT_B = 512
+TRAJ, TRAJ_T = 32, 100
+B2_SHAPES = [(32, 30, 3), (512, 30, 3), (16, 300, 3), (3, 1, 2), (4, 1000, 8),
+             (2, 5000, 3)]
+# B2 against its plain version: fp32 sums over M in a warp-shuffle tree
+# against torch's reductions, expf/logf against torch's exp/log; values are
+# O(1-10) and M reaches 5000.
+B2_ATOL = 1e-5
+# One optimizer step on the card against the CPU (B=32, L=16, TF32 off):
+# cuDNN and CPU convolutions and GEMMs sum in other orders, carried through
+# 15 filter steps and back. Loss relative; gradients per parameter relative
+# to its largest entry. The loosest gradients are the gate's image convs:
+# sums over 512 frames x 1024 pixels that cancel to a small fraction of
+# their terms (up to 3.6e-3 of their scale apart on the H100), so 1e-2.
+# Adam's first step is lr * g / (|g| + 1e-8): an entry whose gradient is
+# below 1e-5 or within twice its own device difference of zero (many of the
+# gate's, whose two-way softmax saturates at random weights) may step +lr on
+# one device and -lr on the other. On every other entry the step moves by at
+# most 1e-8 |dg| / |g|^2 <= 5e-4 lr, so the updates must agree within
+# 1e-3 lr; and no update exceeds Adam's first-step bound lr. Both beyond the
+# fp32 rounding of the parameter the update is read back from (2 ulp).
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_RTOL = 1e-2
+STEP_UPDATE_ATOL_LR = 1e-3
 
 
 def emit(obj) -> None:
@@ -72,6 +108,15 @@ def cuda_ms(fn, repeats: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_kernels(prof):
+    """The device-side events of a torch.profiler run: kernels and copies,
+    not the annotations the profiler mirrors onto the device timeline."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def b1_inputs(n, m, d, device, seed):
@@ -309,11 +354,7 @@ def phase_profile(model, pf_kernels, device) -> None:
     import collections
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def device_kernels(prof):
-        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
 
     obs, controls = sequences(T, N, seed=5)
     mean, cov = initial_state(N)
@@ -355,6 +396,396 @@ def phase_profile(model, pf_kernels, device) -> None:
           "b1_device_us_per_launch": statistics.median(b1_us) if b1_us else None})
 
 
+# ---------------------------------------------------------------------------
+# Training path: B2 and train_e2e
+# ---------------------------------------------------------------------------
+
+
+def b2_bound_ms(n: int, m: int, d: int, backward: bool) -> tuple:
+    """Least time for B2f or B2b: each input read once and each output
+    written once, against the arithmetic (one operation per add, multiply,
+    max, exp, log or divide).
+
+    B2f reads lw, ll, particles and writes lw', est: 4 (N M (3 + D) + N D)
+    bytes; per particle s, max, exp, sum, the shift, lw', p and D
+    multiply-adds: 8 + 2D operations.
+    B2b reads lw', particles, est, g_lw', g_est and writes g_s, g_x:
+    4 (N M (3 + 2D) + 2 N D) bytes; per particle exp, the sum of g_lw',
+    x . g_est, g_s, g_x: 6 + 3D operations."""
+    if backward:
+        nbytes = 4 * (n * m * (3 + 2 * d) + 2 * n * d)
+        ops = n * m * (6 + 3 * d)
+    else:
+        nbytes = 4 * (n * m * (3 + d) + n * d)
+        ops = n * m * (8 + 2 * d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def b2_inputs(n, m, d, device, seed):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    lw = torch.log_softmax(torch.randn(n, m, generator=g, device=device), dim=1)
+    ll = torch.randn(n, m, generator=g, device=device)
+    particles = torch.randn(n, m, d, generator=g, device=device)
+    g_lw = torch.randn(n, m, generator=g, device=device)
+    g_est = torch.randn(n, d, generator=g, device=device)
+    return lw, ll, particles, g_lw, g_est
+
+
+def phase_b2(pf_estimate, device) -> dict:
+    """B2f and B2b against their plain versions at every listed shape, and
+    torch.autograd.grad through the Function against the plain forward."""
+    import torch
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    worst = {"fwd": 0.0, "bwd": 0.0, "autograd": 0.0}
+    results = []
+    for i, (n, m, d) in enumerate(B2_SHAPES):
+        lw, ll, particles, g_lw, g_est = b2_inputs(n, m, d, device, seed=20 + i)
+        klw, kest = pf_estimate.pf_update_estimate_fwd(lw, ll, particles)
+        torch.cuda.synchronize()
+        rlw, rest = pf_estimate.pf_update_estimate_reference(lw, ll, particles)
+        kgs, kgx = pf_estimate.pf_update_estimate_bwd(rlw, particles, rest, g_lw, g_est)
+        torch.cuda.synchronize()
+        rgs, rgx = pf_estimate.pf_update_estimate_backward_reference(
+            rlw, particles, rest, g_lw, g_est)
+        grads = []
+        for fn in (pf_estimate.pf_update_estimate,
+                   pf_estimate.pf_update_estimate_reference):
+            args = [x.clone().requires_grad_() for x in (lw, ll, particles)]
+            with torch.enable_grad():
+                out_lw, est = fn(*args)
+                grads.append(torch.autograd.grad(
+                    (out_lw * g_lw).sum() + (est * g_est).sum(), args))
+        torch.cuda.synchronize()
+        row = {"shape": [n, m, d],
+               "fwd": max(err(klw, rlw), err(kest, rest)),
+               "bwd": max(err(kgs, rgs), err(kgx, rgx)),
+               "autograd": max(err(a, b) for a, b in zip(*grads))}
+        for key in worst:
+            check(row[key] <= B2_ATOL, f"B2 {key} {n, m, d}: error {row[key]}")
+            worst[key] = max(worst[key], row[key])
+        results.append(row)
+    emit({"phase": "b2_vs_plain", "atol": B2_ATOL, "results": results})
+    return worst
+
+
+def trajectories(count, t, seed):
+    """Seeded synthetic door trajectories (states, 32x32 images, gripper
+    pos and sensors, controls)."""
+    import numpy as np
+
+    from multimodalfilter_tpu_torch.types import Trajectory
+
+    r = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        obs = {"image": r.normal(size=(t, 32, 32)).astype(np.float32),
+               "gripper_pos": r.normal(size=(t, 3)).astype(np.float32),
+               "gripper_sensors": r.normal(size=(t, 7)).astype(np.float32)}
+        states = np.cumsum(0.1 * r.normal(size=(t, 3)), axis=0).astype(np.float32)
+        out.append(Trajectory(states, obs, r.normal(size=(t, 7)).astype(np.float32)))
+    return out
+
+
+def one_step_dataset(trajs):
+    """The first trajectories' windows, enough for one batch of TRAIN_B
+    (36 windows at the script's sizes: one optimizer step)."""
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset
+
+    per_traj = TRAJ_T // TRAIN_L
+    return SubsequenceDataset(trajs[: -(-TRAIN_B // per_traj)], TRAIN_L)
+
+
+def snapshot(model):
+    return {k: v.detach().clone() for k, v in model.params.state_dict().items()}
+
+
+def one_step(model, batch, noise, loops, optim):
+    """The e2e loss, its gradients and one fresh Adam step on `model`, from
+    a fixed batch and fixed noise. Returns (loss, grads, params after)."""
+    import torch
+
+    device = model.device
+    real = loops.draw_noise
+    loops.draw_noise = lambda generator, shapes, dev: tuple(x.to(dev) for x in noise)
+    try:
+        optimizer = optim.make_optimizer(model.params.parameters())
+        with torch.enable_grad():
+            loss = loops.e2e_loss(model.definition, loops._to_device(batch, device),
+                                  enabled=model._enabled_tuple, initial_cov_scale=0.1,
+                                  generator=None)
+            loss.backward()
+        grads = {k: p.grad.detach().cpu().clone() for k, p in model.params.named_parameters()}
+        optim.apply_gradients(optimizer, model.params, frozenset())
+    finally:
+        loops.draw_noise = real
+    return float(loss.detach()), grads, {k: v.cpu() for k, v in snapshot(model).items()}
+
+
+def phase_train_path(door_models, kernels, device) -> dict:
+    """The training path through train_helpers on the card: B2f and B2b
+    launch once per filter step, B1 never; the loss is finite and every
+    parameter moves. Then one optimizer step on the card against the CPU,
+    and a step with the gate frozen."""
+    import math
+
+    import torch
+
+    from multimodalfilter_tpu_torch.crossmodal import train_helpers
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.filtering.wrappers import freeze_module
+    from multimodalfilter_tpu_torch.train import loops, optim
+
+    b1, b2f, b2b = kernels
+    trajs = trajectories(TRAJ, TRAJ_T, seed=10)
+    model = door_models.DoorCrossmodalParticleFilter(device=device, seed=0)
+    check(model.definition.num_particles_train == TRAIN_M, "train particle count")
+    before = snapshot(model)
+    with tempfile.TemporaryDirectory() as log_dir:
+        buddy = Buddy("chip_smoke", model, log_dir=log_dir)
+        train_helpers.configure(buddy=buddy, trajectories=trajs)
+        b1.launches = b2f.launches = b2b.launches = 0
+        loss = train_helpers.train_e2e(subsequence_length=TRAIN_L, epochs=1,
+                                       batch_size=TRAIN_B)
+        torch.cuda.synchronize()
+        launches = {"b1": b1.launches, "b2f": b2f.launches, "b2b": b2b.launches}
+    steps = buddy.optimizer_steps
+    windows = TRAJ * (TRAJ_T // TRAIN_L)
+    check(steps == windows // TRAIN_B, f"{steps} optimizer steps")
+    per = steps * (TRAIN_L - 1)
+    check(launches == {"b1": 0, "b2f": per, "b2b": per}, f"launches {launches}")
+    check(math.isfinite(loss), f"loss {loss}")
+    after = snapshot(model)
+    unmoved = [k for k in after if torch.equal(after[k], before[k])]
+    check(not unmoved, f"parameters that did not move: {unmoved}")
+
+    # One step on the card against the same step on the CPU (plain tail).
+    gpu_model = door_models.DoorCrossmodalParticleFilter(device=device, seed=1)
+    cpu_model = door_models.DoorCrossmodalParticleFilter(device="cpu", seed=1)
+    ds = SubsequenceDataset(trajs, TRAIN_L)
+    batch = {"states": ds.states[:TRAIN_B], "controls": ds.controls[:TRAIN_B],
+             "obs": {k: v[:TRAIN_B] for k, v in ds.observations.items()}}
+    g = torch.Generator().manual_seed(11)
+    noise = (torch.randn((TRAIN_B, TRAIN_M, 3), generator=g),
+             torch.randn((TRAIN_L - 1, TRAIN_B * TRAIN_M, 3), generator=g))
+    start = {k: v.cpu() for k, v in snapshot(gpu_model).items()}
+    f0 = b2f.launches
+    g_loss, g_grads, g_params = one_step(gpu_model, batch, noise, loops, optim)
+    check(b2f.launches - f0 == TRAIN_L - 1, "the card's step did not run B2f")
+    c_loss, c_grads, c_params = one_step(cpu_model, batch, noise, loops, optim)
+    loss_err = abs(g_loss - c_loss) / abs(c_loss)
+    check(loss_err <= STEP_LOSS_RTOL, f"step loss {g_loss} vs {c_loss}")
+    lr = optim.DEFAULT_LEARNING_RATE
+    grad_errs, update_errs = {}, {}
+    resolved = entries = 0
+    largest_step = 0.0
+    for k in c_grads:
+        gg, gc = g_grads[k], c_grads[k]
+        grad_errs[k] = float((gg - gc).abs().max()) / float(gc.abs().max())
+        dg, dc = g_params[k] - start[k], c_params[k] - start[k]
+        ulp = 2 * torch.finfo(torch.float32).eps * start[k].abs()
+        ok = (gc.abs() >= 1e-5) & (gc.abs() >= 2 * (gg - gc).abs())
+        excess = ((dg - dc).abs() - ulp)[ok]
+        update_errs[k] = max(0.0, float(excess.max()) / lr) if ok.any() else 0.0
+        resolved, entries = resolved + int(ok.sum()), entries + ok.numel()
+        largest_step = max(largest_step, float((dg.abs() - ulp).max()) / lr,
+                           float((dc.abs() - ulp).max()) / lr)
+    worst_grads = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:3]
+    worst_updates = sorted(update_errs.items(), key=lambda kv: -kv[1])[:3]
+    emit({"phase": "train_step_card_vs_cpu", "worst_grad_err_of_scale": worst_grads,
+          "worst_update_err_lr": worst_updates, "resolved_entries": resolved,
+          "entries": entries, "largest_step_lr": largest_step})
+    grad_err, update_err = worst_grads[0][1], worst_updates[0][1]
+    check(grad_err <= STEP_GRAD_RTOL, f"gradient {worst_grads[0]} of its scale")
+    check(update_err <= STEP_UPDATE_ATOL_LR, f"Adam update {worst_updates[0]} lr")
+    check(largest_step <= 1 + 1e-6, f"an Adam first step of {largest_step} lr")
+
+    # A step with the gate frozen, from a fresh optimizer: the gate stays.
+    freeze_module(gpu_model.measurement_model.crossmodal_weight_model)
+    held = snapshot(gpu_model)
+    with tempfile.TemporaryDirectory() as log_dir:
+        buddy2 = Buddy("chip_smoke_frozen", gpu_model, log_dir=log_dir)
+        one = one_step_dataset(trajs)
+        loops.train_e2e(buddy2, gpu_model, one, epochs=1, batch_size=TRAIN_B,
+                        optimizer_name="frozen_gate")
+    check(buddy2.optimizer_steps == len(one) // TRAIN_B, "frozen step count")
+    now = snapshot(gpu_model)
+    gate = "measurement_model.crossmodal_weight_model."
+    for k in now:
+        check(torch.equal(now[k], held[k]) == k.startswith(gate), f"frozen step: {k}")
+
+    emit({"phase": "train_path", "model": "DoorCrossmodalParticleFilter", "units": 64,
+          "B": TRAIN_B, "L": TRAIN_L, "M": TRAIN_M, "windows": windows,
+          "optimizer_steps": steps, "launches": launches, "epoch_loss": loss,
+          "every_parameter_moved": True,
+          "card_vs_cpu_step": {"loss_gpu": g_loss, "loss_cpu": c_loss,
+                               "loss_rel_err": loss_err,
+                               "max_grad_err_of_scale": grad_err,
+                               "max_update_err_lr": update_err,
+                               "resolved_share": resolved / entries,
+                               "tolerances": [STEP_LOSS_RTOL, STEP_GRAD_RTOL,
+                                              STEP_UPDATE_ATOL_LR]},
+          "frozen_gate_unchanged": True, "tf32": False})
+    return {"model": model, "trajectories": trajs, "launches": launches}
+
+
+def phase_train_times(model, trajs, pf_estimate, device) -> dict:
+    """Train filter-steps/s = steps * B * (L-1) / epoch time (bench.py:707)
+    at B=32 and B=512, each a median of CUDA-event timings of a whole
+    ``train_e2e`` epoch (the dataset's push to the card included); and B2f,
+    B2b and their plain versions per launch."""
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.train import loops
+
+    rates = []
+    with tempfile.TemporaryDirectory() as log_dir:
+        buddy = Buddy("chip_smoke_times", model, log_dir=log_dir)
+        for b, data in ((TRAIN_B, trajs),
+                        (TRAIN_SAT_B, trajectories(2 * TRAIN_SAT_B // (TRAJ_T // TRAIN_L) + 1,
+                                                   TRAJ_T, seed=12))):
+            ds = SubsequenceDataset(data, TRAIN_L)
+            steps = len(ds) // b
+
+            def epoch():
+                loops.train_e2e(buddy, model, ds, epochs=1, batch_size=b,
+                                optimizer_name=f"times_{b}")
+
+            ms = cuda_ms(epoch, repeats=3, warmup=1)
+            rates.append({"B": b, "L": TRAIN_L, "M": TRAIN_M, "optimizer_steps": steps,
+                          "ms_per_epoch": ms, "ms_per_step": ms / steps,
+                          "train_filter_steps_per_s": steps * b * (TRAIN_L - 1) / (ms / 1e3)})
+
+    kernel = {}
+    for n in (TRAIN_B, TRAIN_SAT_B):
+        lw, ll, particles, g_lw, g_est = b2_inputs(n, TRAIN_M, 3, device, seed=30)
+        lwn, est = pf_estimate.pf_update_estimate_reference(lw, ll, particles)
+        reps = 200
+
+        def many(fn, *args):
+            return lambda: [fn(*args) for _ in range(reps)]
+
+        fwd_args, bwd_args = (lw, ll, particles), (lwn, particles, est, g_lw, g_est)
+        for name, k_fn, p_fn, args, backward in (
+            ("b2f", pf_estimate.pf_update_estimate_fwd,
+             pf_estimate.pf_update_estimate_reference, fwd_args, False),
+            ("b2b", pf_estimate.pf_update_estimate_bwd,
+             pf_estimate.pf_update_estimate_backward_reference, bwd_args, True),
+        ):
+            bound, bound_by = b2_bound_ms(n, TRAIN_M, 3, backward)
+            kernel[f"{name}_{n}x{TRAIN_M}x3"] = {
+                "ms": cuda_ms(many(k_fn, *args), repeats=5) / reps,
+                "plain_ms": cuda_ms(many(p_fn, *args), repeats=5) / reps,
+                "bound_ms": bound, "bound_by": bound_by}
+    emit({"phase": "train_times", "train": rates, "b2": kernel, "b2_library_ms": None,
+          "tf32": False})
+    return kernel, rates
+
+
+def host_breakdown_ms(model, trajs, loops, optim) -> dict:
+    """Host time of one optimizer step's parts at B=32 (the loss forward,
+    its backward, Adam), each ended by a synchronize: median of 3."""
+    import torch
+
+    ds = one_step_dataset(trajs)
+    batch = loops._to_device({"states": ds.states[:TRAIN_B], "controls": ds.controls[:TRAIN_B],
+                              "obs": {k: v[:TRAIN_B] for k, v in ds.observations.items()}},
+                             model.device)
+    optimizer = optim.make_optimizer(model.params.parameters())
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(4):
+        optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss = loops.e2e_loss(model.definition, batch, enabled=model._enabled_tuple,
+                                  initial_cov_scale=0.1, generator=model.generator)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        optim.apply_gradients(optimizer, model.params, frozenset())
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, dt in (("forward", t1 - t0), ("backward", t2 - t1), ("optimizer", t3 - t2)):
+            parts[name].append(dt * 1e3)
+    return {k: statistics.median(v[1:]) for k, v in parts.items()}
+
+
+def phase_train_profile(model, trajs, pf_estimate, device, step_ms) -> None:
+    """Where a training step's time goes: one warm optimizer step at B=32
+    under torch.profiler, tracing the device only (device busy time, its
+    share of the profiled wall time and of the unprofiled `step_ms`, kernels
+    per optimizer step, the largest kernels); the host time of the step's
+    parts; and B2f's and B2b's device time per launch."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.train import loops, optim
+
+    one = one_step_dataset(trajs)
+    with tempfile.TemporaryDirectory() as log_dir:
+        buddy = Buddy("chip_smoke_profile", model, log_dir=log_dir)
+
+        def step():
+            loops.train_e2e(buddy, model, one, epochs=1, batch_size=TRAIN_B,
+                            optimizer_name="profile")
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    if not kernels:
+        emit({"phase": "train_profile", "device_time": "not measured"})
+        return
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    busy_us = sum(v[1] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+
+    lw, ll, particles, g_lw, g_est = b2_inputs(TRAIN_B, TRAIN_M, 3, device, seed=31)
+    lwn, est = pf_estimate.pf_update_estimate_reference(lw, ll, particles)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_b2:
+        for _ in range(50):
+            pf_estimate.pf_update_estimate_fwd(lw, ll, particles)
+            pf_estimate.pf_update_estimate_bwd(lwn, particles, est, g_lw, g_est)
+        torch.cuda.synchronize()
+    per = {"b2f": [], "b2b": []}
+    for e in device_kernels(prof_b2):
+        if "pf_estimate_fwd" in e.name:
+            per["b2f"].append(e.time_range.elapsed_us())
+        elif "pf_estimate_bwd" in e.name:
+            per["b2b"].append(e.time_range.elapsed_us())
+    b2_names = sum(c for k, (c, _) in by_name.items() if "pf_estimate" in k)
+    emit({"phase": "train_profile", "B": TRAIN_B, "L": TRAIN_L, "M": TRAIN_M,
+          "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+          "device_busy_share": busy_us / wall_us, "unprofiled_step_ms": step_ms,
+          "device_busy_share_of_unprofiled_step": busy_us / 1e3 / step_ms,
+          "device_kernels_per_optimizer_step": len(kernels),
+          "host_ms": host_breakdown_ms(model, trajs, loops, optim),
+          "b2_kernels_in_step": b2_names,
+          "top_kernels": [{"name": k[:80], "count": c, "ms": us / 1e3}
+                          for k, (c, us) in top],
+          "b2f_device_us_per_launch": statistics.median(per["b2f"]) if per["b2f"] else None,
+          "b2b_device_us_per_launch": statistics.median(per["b2b"]) if per["b2b"] else None})
+
+
 def main() -> int:
     import torch
 
@@ -364,7 +795,7 @@ def main() -> int:
     try:
         from multimodalfilter_tpu_torch.crossmodal import door_models
         from multimodalfilter_tpu_torch.filtering import pf as pf_module
-        from multimodalfilter_tpu_torch.ops import _build, pf_kernels
+        from multimodalfilter_tpu_torch.ops import _build, pf_estimate, pf_kernels
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 1
@@ -385,9 +816,18 @@ def main() -> int:
           "tf32_matmul": False, "tf32_cudnn": False})
 
     b1_check = phase_b1(pf_kernels, device)
+    b2_check = phase_b2(pf_estimate, device)
     main_path = phase_main_path(door_models, pf_kernels, pf_module, device)
+    train_path = phase_train_path(
+        door_models, (pf_kernels.pf_update_and_resample,
+                      pf_estimate.pf_update_estimate_fwd,
+                      pf_estimate.pf_update_estimate_bwd), device)
     times = phase_times(main_path["model"], pf_kernels, device)
+    b2_times, train_rates = phase_train_times(
+        train_path["model"], train_path["trajectories"], pf_estimate, device)
     phase_profile(main_path["model"], pf_kernels, device)
+    phase_train_profile(train_path["model"], train_path["trajectories"], pf_estimate,
+                        device, train_rates[0]["ms_per_step"])
 
     emit({"kernels": [{
         "name": "pf_update_and_resample",
@@ -404,7 +844,20 @@ def main() -> int:
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],
         "library_ms": None,
-    }]})
+    }] + [{
+        "name": f"pf_update_estimate_{part}",
+        "route": "cuda",
+        "source": "multimodalfilter_tpu_torch/csrc/pf_estimate.cu",
+        "replaces": f"multimodalfilter_tpu/ops/pallas_pf.py:{line}",
+        "launches": train_path["launches"][key],
+        "max_abs_err": b2_check[part],
+        "shape": [TRAIN_B, TRAIN_M, 3],
+        "ms": b2_times[f"{key}_{TRAIN_B}x{TRAIN_M}x3"]["ms"],
+        "plain_ms": b2_times[f"{key}_{TRAIN_B}x{TRAIN_M}x3"]["plain_ms"],
+        "bound_ms": b2_times[f"{key}_{TRAIN_B}x{TRAIN_M}x3"]["bound_ms"],
+        "bound_by": b2_times[f"{key}_{TRAIN_B}x{TRAIN_M}x3"]["bound_by"],
+        "library_ms": None,
+    } for part, key, line in (("fwd", "b2f", 458), ("bwd", "b2b", 486))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,7 @@ import abc
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
 from torch import nn
 
 
@@ -42,6 +43,27 @@ class DynamicsDef:
 
     def apply_with_control_features(self, states, control_features):
         return self.net.from_control_features(states, control_features)
+
+    def forward_loop(self, initial_states, controls_seq):
+        """Noise-free mean rollout. controls_seq: (T, N, C). Returns
+        (states (T, N, D), scale_trils (T, N, D, D)). The control encoder
+        runs once over all T*N rows when the net splits."""
+        t, n = controls_seq.shape[:2]
+        if self.supports_control_hoist:
+            feats = self.encode_controls(
+                controls_seq.reshape((t * n,) + controls_seq.shape[2:])
+            )
+            feats = feats.reshape((t, n) + feats.shape[1:])
+            step = self.apply_with_control_features
+        else:
+            feats, step = controls_seq, self.apply
+        states, scale_trils = [], []
+        carry = initial_states
+        for i in range(t):
+            carry, scale_tril = step(carry, feats[i])
+            states.append(carry)
+            scale_trils.append(scale_tril)
+        return torch.stack(states), torch.stack(scale_trils)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

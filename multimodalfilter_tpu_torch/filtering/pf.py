@@ -9,8 +9,9 @@
 The particle axis M is fused with batch N into one (N*M, ...) batch for the
 dynamics network. ``forward_loop`` always hoists the observation encoders
 and the control encoder over all T*N frames and pre-draws the noise and
-uniforms; the eval step tail is chosen by device: the B1 kernel for CUDA
-tensors (``ops/pf_kernels.py``), its plain version for CPU tensors.
+uniforms. The step tail is chosen by device: for CUDA tensors the B1 kernel
+in eval (``ops/pf_kernels.py``) and the B2 kernels, forward and backward, in
+train (``ops/pf_estimate.py``); their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.pf_estimate import pf_update_estimate, pf_update_estimate_reference
 from ..ops.pf_kernels import SMALL_M_MAX, pf_update_and_resample
 from ..ops.resampling import multinomial_resample, soft_resample
 from ..types import ParticleBelief
@@ -53,13 +55,18 @@ class ParticleFilterDef(FilterDef):
         })
 
     def initialize_beliefs(self, mean, covariance, *, train: bool,
-                           generator: Optional[torch.Generator] = None):
-        """Sample particles ~ N(mean, covariance); uniform log-weights."""
+                           generator: Optional[torch.Generator] = None, eps=None):
+        """Sample particles ~ N(mean, covariance); uniform log-weights.
+        `eps` (N, M, D) may be pre-drawn; otherwise it is drawn from
+        `generator`."""
         n, d = mean.shape
         m = self.num_particles(train)
         chol = torch.linalg.cholesky(covariance)
-        eps = torch.randn((n, m, d), generator=generator, dtype=mean.dtype,
-                          device=mean.device)
+        if eps is None:
+            eps = torch.randn((n, m, d), generator=generator, dtype=mean.dtype,
+                              device=mean.device)
+        elif tuple(eps.shape) != (n, m, d):
+            raise ValueError(f"eps must be {(n, m, d)}, got {tuple(eps.shape)}")
         particles = mean[:, None, :] + torch.einsum("nij,nmj->nmi", chol, eps)
         log_weights = torch.full((n, m), -math.log(m), dtype=mean.dtype,
                                  device=mean.device)
@@ -95,43 +102,45 @@ class ParticleFilterDef(FilterDef):
         # --- Measurement update ---
         log_liks = log_lik_fn(particles)
 
-        if not train:
-            if uniforms is None:
-                uniforms = torch.rand((n, m), generator=generator,
-                                      dtype=particles.dtype, device=particles.device)
-            if particles.is_cuda and self.soft_resample_alpha < 1.0:
-                raise NotImplementedError(
-                    "soft resampling on CUDA needs the kernel B4 "
-                    "(pallas_pf.py::_pf_soft_kernel), not yet ported"
-                )
-            # The B1 kernel on CUDA (which raises for M > SMALL_M_MAX: B5);
-            # its plain version on the CPU.
-            if particles.is_cuda or (
-                self.soft_resample_alpha >= 1.0 and m <= SMALL_M_MAX
-            ):
-                particles, log_weights, estimate = pf_update_and_resample(
-                    log_weights.contiguous(), log_liks.contiguous(),
-                    particles.contiguous(), uniforms.contiguous(),
-                )
-                return ParticleBelief(particles, log_weights), estimate
+        if train:
+            # Update and estimate, no resampling during BPTT: the B2 kernels
+            # (forward and backward) on CUDA, their plain version on the CPU.
+            log_weights, estimate = pf_update_estimate(
+                log_weights.contiguous(), log_liks.contiguous(),
+                particles.contiguous(),
+            )
+            return ParticleBelief(particles, log_weights), estimate
 
-        log_weights = log_weights + log_liks
-        log_weights = log_weights - torch.logsumexp(log_weights, dim=1, keepdim=True)
+        if uniforms is None:
+            uniforms = torch.rand((n, m), generator=generator,
+                                  dtype=particles.dtype, device=particles.device)
+        if particles.is_cuda and self.soft_resample_alpha < 1.0:
+            raise NotImplementedError(
+                "soft resampling on CUDA needs the kernel B4 "
+                "(pallas_pf.py::_pf_soft_kernel), not yet ported"
+            )
+        # The B1 kernel on CUDA (which raises for M > SMALL_M_MAX: B5); its
+        # plain version on the CPU.
+        if particles.is_cuda or (self.soft_resample_alpha >= 1.0 and m <= SMALL_M_MAX):
+            particles, log_weights, estimate = pf_update_and_resample(
+                log_weights.contiguous(), log_liks.contiguous(),
+                particles.contiguous(), uniforms.contiguous(),
+            )
+            return ParticleBelief(particles, log_weights), estimate
 
-        # --- Estimate (before resampling) ---
-        estimate = torch.einsum("nm,nmd->nd", torch.exp(log_weights), particles)
-
-        # --- Resampling: on in eval, off in train ---
-        if not train:
-            if self.soft_resample_alpha >= 1.0:
-                particles, log_weights = multinomial_resample(
-                    particles, log_weights, uniforms=uniforms
-                )
-            else:
-                particles, log_weights = soft_resample(
-                    particles, log_weights, self.soft_resample_alpha,
-                    uniforms=uniforms,
-                )
+        # CPU only (soft resampling, or M > SMALL_M_MAX): the plain update,
+        # the estimate taken before resampling, then the resample.
+        log_weights, estimate = pf_update_estimate_reference(
+            log_weights, log_liks, particles
+        )
+        if self.soft_resample_alpha >= 1.0:
+            particles, log_weights = multinomial_resample(
+                particles, log_weights, uniforms=uniforms
+            )
+        else:
+            particles, log_weights = soft_resample(
+                particles, log_weights, self.soft_resample_alpha, uniforms=uniforms,
+            )
         return ParticleBelief(particles, log_weights), estimate
 
     def step(self, belief, observations, controls, *, train: bool,

@@ -1,20 +1,90 @@
-"""Stateful filter facade, the particle-filter eval subset (port of
-``multimodalfilter_tpu/filtering/wrappers.py::StatefulFilter``).
+"""Stateful filter facade, the particle-filter subset (port of
+``multimodalfilter_tpu/filtering/wrappers.py``).
 
-Holds a filter def, its parameters (``params``: the module tree whose
-state-dict keys are the flax param paths, loadable with
-``weights.load_jax_params``), the current belief, and a seeded
-``torch.Generator`` on the model's device.
+``StatefulFilter`` holds a filter def, its parameters (``params``: the
+module tree whose state-dict keys are the flax param paths, loadable with
+``weights.load_jax_params``), the current belief, a seeded
+``torch.Generator`` on the model's device, the enabled-modality mask and the
+set of frozen parameter paths. ``ModuleHandle`` is a view of a submodule
+(``filter_model.measurement_model.crossmodal_weight_model``): its dotted
+path and sub-def, which is what the train loops and ``freeze_module`` need.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import dataclasses
+from typing import Any, List, Optional, Tuple
 
 import torch
 
 from .._device import Device, resolve_device
 from ..weights import init_params, load_jax_params
+
+def _join(path: str, name: str) -> str:
+    return f"{path}.{name}" if path else name
+
+
+class ModuleHandle:
+    """View of a submodule of a StatefulFilter: (root, dotted path, sub-def)."""
+
+    def __init__(self, root: "StatefulFilter", path: str, definition):
+        self.root = root
+        self.path = path
+        self.definition = definition
+
+    @property
+    def params(self) -> torch.nn.Module:
+        return self.root.params.get_submodule(self.path)
+
+    @property
+    def enabled_models(self) -> Optional[List[bool]]:
+        return self.root.enabled_models
+
+    @enabled_models.setter
+    def enabled_models(self, value: List[bool]):
+        self.root.enabled_models = value
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return _child_accessor(self.root, self.path, self.definition, name)
+
+    def __repr__(self):
+        return f"ModuleHandle({self.path!r}, {type(self.definition).__name__})"
+
+
+class _ListHandle:
+    """Handle over a tuple field of a def (the reference's nn.ModuleList)."""
+
+    def __init__(self, root, path: str, items: Tuple[Any, ...]):
+        self.root = root
+        self.path = path
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index: int) -> ModuleHandle:
+        return ModuleHandle(self.root, _join(self.path, str(index)), self.items[index])
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
+def _child_accessor(root, path: str, definition, name: str):
+    if dataclasses.is_dataclass(definition):
+        for field in dataclasses.fields(definition):
+            if field.name == name:
+                value = getattr(definition, name)
+                child_path = _join(path, name)
+                if isinstance(value, tuple):  # e.g. measurement_models
+                    return _ListHandle(root, child_path, value)
+                if dataclasses.is_dataclass(value) and hasattr(value, "module"):
+                    return ModuleHandle(root, child_path, value)
+                return value
+    raise AttributeError(
+        f"{type(definition).__name__} has no submodule/attribute {name!r}"
+    )
 
 
 class StatefulFilter:
@@ -28,6 +98,7 @@ class StatefulFilter:
         self.generator.manual_seed(seed)
         self._training = True
         self._belief = None
+        self.frozen_paths: set = set()
         count = len(getattr(definition.measurement_model, "measurement_models", ()))
         self._enabled_models: Optional[List[bool]] = [True] * count if count else None
 
@@ -55,6 +126,17 @@ class StatefulFilter:
     @property
     def _enabled_tuple(self) -> Optional[Tuple[bool, ...]]:
         return tuple(self._enabled_models) if self._enabled_models else None
+
+    @property
+    def state_dim(self) -> int:
+        return self.definition.state_dim
+
+    # -- submodule handles ------------------------------------------------------
+    def __getattr__(self, name: str):
+        # Only called when normal attribute lookup fails.
+        if name.startswith("_") or "definition" not in self.__dict__:
+            raise AttributeError(name)
+        return _child_accessor(self, "", self.__dict__["definition"], name)
 
     def load_jax_params(self, tree) -> None:
         """Copy a JAX model's param tree into this model."""
@@ -93,3 +175,21 @@ class StatefulFilter:
             generator=self.generator,
         )
         return estimates
+
+
+def _root_and_path(module):
+    if isinstance(module, (ModuleHandle, _ListHandle)):
+        return module.root, module.path
+    return module, ""
+
+
+def freeze_module(module) -> None:
+    """Mark a filter's or handle's parameters as frozen for subsequent
+    training (fannypack.utils.freeze_module; train_door.py:144,158)."""
+    root, path = _root_and_path(module)
+    root.frozen_paths.add(path)
+
+
+def unfreeze_module(module) -> None:
+    root, path = _root_and_path(module)
+    root.frozen_paths.discard(path)
