@@ -13,7 +13,17 @@ through its kernels, and times them:
   through B1, against the same model run on the CPU through the plain tail;
 - training: ``train_helpers.train_e2e`` (BPTT, B=32, L=16, M=30) through the
   B2 kernels, forward and backward, with one optimizer step held against the
-  same step on the CPU through the plain tail.
+  same step on the CPU through the plain tail;
+- serving: the same model built through ``StatefulFilter`` with
+  ``MMF_TPU_FUSED_STEP=1``, whose eval loop at N=16, T=100, M=300 is one
+  launch of B3, against the per-step path of the same model, with
+  filter-steps/s at N=16 and the latency of a step at N=1 for both;
+- the per-step eval loop through B4 (soft resampling) and B5 (M=2048 and
+  M=16384).
+
+B3 is also held against its plain version step by step (T=100 launches of
+one step, each from the plain run's belief), over a whole loop, and at other
+shapes; B4 and B5 at ten shapes up to M=20,000.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 means fp32.
 
@@ -26,6 +36,7 @@ before that line. Needs one card; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -42,6 +53,37 @@ B1_SHAPES = [(16, 300, 3), (16, 100, 3), (512, 100, 3),
              (16, 1, 2), (16, 1000, 2), (16, 1024, 2)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
+
+# The remaining eval kernels. B4 and B5 against their plain version at these
+# (N, M, D, alpha); B4 takes M <= 1024 with alpha < 1, B5 every M > 1024.
+B45_SHAPES = [(16, 300, 3, 0.9), (16, 1, 2, 0.9), (16, 1025, 3, 1.0), (16, 1025, 3, 0.5),
+              (16, 2048, 3, 1.0), (16, 2048, 3, 0.5), (4, 16384, 3, 1.0),
+              (4, 16384, 3, 0.5), (2, 20000, 3, 1.0), (2, 20000, 3, 0.5)]
+SOFT_ALPHA = 0.9
+# Soft log-weights: values near -log M (to -9.9 at M = 20,000, where one fp32
+# ulp is ~1e-6), normalised by sums of M exponentials in another order.
+SOFT_LW_ATOL = 2e-5
+# B3 against its plain version: resampled particles whose draw is off a tie
+# come from the same source slot, so they differ only by the trunks' fp32
+# rounding (the states are O(10) at random weights, ulp ~1e-6); two source
+# slots differ by far more.
+PARTICLE_ATOL = 1e-4
+# B3's fused log-likelihoods against the plain trunks', relative to their
+# scale where it exceeds 1: fp32 sums of 64 terms through 16 layers in two
+# orders, with cancellation (about 100x one layer's rounding).
+LL_RTOL = 1e-4
+# A whole B3 loop against its plain run, over each trajectory's steps before
+# its draws first diverge: rounding carried through up to T steps of the
+# belief, relative to the estimates' scale where that exceeds 1.
+B3_LOOP_ATOL = 1e-4
+B3_OTHER = [("DoorParticleFilter", 2, 300, None),
+            ("DoorCrossmodalParticleFilter", 2, 300, (True, False)),
+            ("DoorCrossmodalParticleFilter", 2, 512, None),
+            ("DoorCrossmodalParticleFilter", 4, 1, None),
+            ("DoorCrossmodalParticleFilter", 1, 300, None)]
+B3_OTHER_T = 10
+# The per-step eval loop through each tail: (kernel, M, T, alpha) at N=16.
+TAIL_PATHS = [("b4", 300, T, SOFT_ALPHA), ("b5", 2048, T, 1.0), ("b5", 16384, 20, 1.0)]
 
 # Training path (bench.py make_train_program's shapes): batch B of windows
 # of L steps, M train particles; the data are TRAJ trajectories of TRAJ_T
@@ -82,16 +124,6 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def b1_bound_ms(n: int, m: int, d: int) -> tuple:
-    """Least time for B1's work: each input read once and each output written
-    once (lw, ll, u, particles in; particles, lw, estimate out), against its
-    arithmetic (update, normalise, estimate, scan, binary search)."""
-    nbytes = 4 * (n * m * (3 + 2 * d + 1) + n * d)
-    ops = n * m * (7 + 2 * d + max(1, m.bit_length()))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def cuda_ms(fn, repeats: int, warmup: int = 3) -> float:
     """Median of `repeats` CUDA-event timings of fn(), in ms."""
     import torch
@@ -110,6 +142,21 @@ def cuda_ms(fn, repeats: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def loop_ms(run, repeats: int) -> tuple:
+    """(CUDA-event ms, host ms) medians of `repeats` timings of run()."""
+    import torch
+
+    ms = cuda_ms(run, repeats=repeats, warmup=1)
+    host = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    return ms, statistics.median(host)
+
+
 def device_kernels(prof):
     """The device-side events of a torch.profiler run: kernels and copies,
     not the annotations the profiler mirrors onto the device timeline."""
@@ -117,6 +164,17 @@ def device_kernels(prof):
 
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+
+
+def kernel_totals(kernels):
+    """({kernel name: [launches, device µs]}, total device µs)."""
+    import collections
+
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    return by_name, sum(v[1] for v in by_name.values())
 
 
 def b1_inputs(n, m, d, device, seed):
@@ -186,7 +244,7 @@ def phase_main_path(door_models, pf_kernels, pf_module, device) -> dict:
 
     from multimodalfilter_tpu_torch.types import ParticleBelief
 
-    b1 = pf_kernels.pf_update_and_resample
+    b1 = pf_kernels.launch_b1
     model = door_models.DoorCrossmodalParticleFilter(device=device, seed=0)
     model.eval()
     model.definition = dataclasses.replace(model.definition, num_particles_eval=M)
@@ -217,11 +275,11 @@ def phase_main_path(door_models, pf_kernels, pf_module, device) -> dict:
     gaps = []  # per step: each uniform's distance to the CPU run's CDF
     real_tail = pf_module.pf_update_and_resample
 
-    def recording_tail(log_weights, log_liks, particles, uniforms):
+    def recording_tail(log_weights, log_liks, particles, uniforms, **kwargs):
         if not particles.is_cuda:
             _, cdf = pf_kernels.resample_cdf(log_weights, log_liks)
             gaps.append(pf_kernels.tie_gaps(cdf, uniforms))
-        return real_tail(log_weights, log_liks, particles, uniforms)
+        return real_tail(log_weights, log_liks, particles, uniforms, **kwargs)
 
     pf_module.pf_update_and_resample = recording_tail
     try:
@@ -314,16 +372,7 @@ def phase_times(model, pf_kernels, device) -> dict:
             model.initialize_beliefs(mean=mean, covariance=cov)
             model.forward_loop(observations=obs, controls=controls)
 
-        repeats = 3 if n == SAT_N else 5
-        ms = cuda_ms(run, repeats=repeats, warmup=1)
-        host = []
-        for _ in range(repeats):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            host.append((time.perf_counter() - t0) * 1e3)
-        host_ms = statistics.median(host)
+        ms, host_ms = loop_ms(run, repeats=3 if n == SAT_N else 5)
         loops.append({"N": n, "M": m, "T": T, "ms_per_loop": ms,
                       "host_ms_per_loop": host_ms,
                       "filter_steps_per_s": T * n / (ms / 1e3)})
@@ -339,7 +388,7 @@ def phase_times(model, pf_kernels, device) -> dict:
 
         k_ms = cuda_ms(many(pf_kernels.pf_update_and_resample), repeats=5) / reps
         p_ms = cuda_ms(many(pf_kernels.pf_update_and_resample_reference), repeats=5) / reps
-        bound, bound_by = b1_bound_ms(n, m, d)
+        bound, bound_by = tail_bound_ms(n, m, d, soft=False)
         kernel[f"{n}x{m}x{d}"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
                                   "bound_by": bound_by}
     emit({"phase": "times", "forward_loop": loops, "b1": kernel,
@@ -351,8 +400,6 @@ def phase_profile(model, pf_kernels, device) -> None:
     """Where the time goes: one warm forward_loop at N=16, M=300 under
     torch.profiler — device busy share, kernels per step, the largest
     kernels — and B1's device time per launch."""
-    import collections
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -374,11 +421,7 @@ def phase_profile(model, pf_kernels, device) -> None:
     if not kernels:
         emit({"phase": "profile", "device_time": "not measured"})
         return
-    by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
-    busy_us = sum(v[1] for v in by_name.values())
+    by_name, busy_us = kernel_totals(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
 
     args = b1_inputs(N, M, 3, device, seed=6)
@@ -387,7 +430,7 @@ def phase_profile(model, pf_kernels, device) -> None:
             pf_kernels.pf_update_and_resample(*args)
         torch.cuda.synchronize()
     b1_us = [e.time_range.elapsed_us() for e in device_kernels(prof_b1)
-             if "pf_resample" in e.name]
+             if "pf_tail_kernel" in e.name]
     emit({"phase": "profile", "N": N, "M": M, "T": T, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / wall_us,
           "device_kernels_per_step": len(kernels) / T,
@@ -725,8 +768,6 @@ def phase_train_profile(model, trajs, pf_estimate, device, step_ms) -> None:
     share of the profiled wall time and of the unprofiled `step_ms`, kernels
     per optimizer step, the largest kernels); the host time of the step's
     parts; and B2f's and B2b's device time per launch."""
-    import collections
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -752,11 +793,7 @@ def phase_train_profile(model, trajs, pf_estimate, device, step_ms) -> None:
     if not kernels:
         emit({"phase": "train_profile", "device_time": "not measured"})
         return
-    by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
-    busy_us = sum(v[1] for v in by_name.values())
+    by_name, busy_us = kernel_totals(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
 
     lw, ll, particles, g_lw, g_est = b2_inputs(TRAIN_B, TRAIN_M, 3, device, seed=31)
@@ -786,6 +823,469 @@ def phase_train_profile(model, trajs, pf_estimate, device, step_ms) -> None:
           "b2b_device_us_per_launch": statistics.median(per["b2b"]) if per["b2b"] else None})
 
 
+# ---------------------------------------------------------------------------
+# The remaining eval kernels: B4 (soft), B5 (large M), B3 (whole loop)
+# ---------------------------------------------------------------------------
+
+
+def tail_bound_ms(n: int, m: int, d: int, soft: bool) -> tuple:
+    """Least time for B1, B4 or B5: the bytes of B1 (each input read once,
+    each output written once), against the arithmetic; soft resampling adds
+    the mixture, its log and the reweight (about 8 operations a slot)."""
+    nbytes = 4 * (n * m * (3 + 2 * d + 1) + n * d)
+    ops = n * m * (7 + 2 * d + max(1, m.bit_length()) + (8 if soft else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def b3_bound_ms(t: int, n: int, m: int, d: int, k: int) -> tuple:
+    """Least time for B3's work. Operations: 2 per multiply-add of the
+    trunks' real (unpadded) layers: per particle-step 9 full 64x64 dynamics
+    layers, its D-wide input and D+1-wide output, and per modality 7 full
+    layers, its D-wide input and 1-wide output; plus ~20 per slot for the
+    fusion and the tail. Bytes: noise, uniforms, hoisted rows and gate,
+    weights and biases, the belief in and out, the estimates."""
+    per = (2 * 64 * 64 * 9 + 2 * 64 * (d + d + 1)
+           + k * (2 * 64 * 64 * 7 + 2 * 64 * (d + 1)) + 20 + 4 * k)
+    ops = per * t * n * m
+    weights = 11 * 64 * 65 + k * 9 * 64 * 65
+    nbytes = 4 * (t * n * m * (d + 1) + t * n * ((1 + k) * 64 + k) + weights
+                  + 2 * n * m * (d + 1) + t * n * d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), ops
+
+
+def phase_b45(pf_kernels, device) -> dict:
+    """B4 and B5 against their plain version at every listed shape: the
+    estimate within 1e-5 and the drawn indices equal off ties. The log-
+    weights: -log M exactly (multinomial); for soft resampling the weights
+    that the kernel's own draws must carry (a draw that flips on a tie
+    changes its row's normaliser, so the plain version's are not the
+    yardstick), within 2e-5."""
+    import torch
+
+    worst = {"b4": 0.0, "b5": 0.0}
+    results = []
+    for i, (n, m, d, alpha) in enumerate(B45_SHAPES):
+        args = b1_inputs(n, m, d, device, seed=40 + i)
+        name = "b5" if m > pf_kernels.SMALL_M_MAX else "b4"
+        counter = getattr(pf_kernels, f"launch_{name}")
+        before = counter.launches
+        kp, klw, kest = pf_kernels.pf_update_and_resample(*args, alpha=alpha)
+        torch.cuda.synchronize()
+        check(counter.launches == before + 1, f"{name} did not launch at {(n, m, d)}")
+        rp, rlw, rest = pf_kernels.pf_update_and_resample_reference(*args, alpha=alpha)
+        tie = pf_kernels.draw_gaps(args[0], args[1], args[3], alpha) <= TIE
+        kidx, drawn = pf_kernels.source_slots(args[2], kp)
+        check(drawn, f"{name} {n, m, d, alpha}: an output is not a draw of the input particles")
+        differs = kidx != pf_kernels.source_slots(args[2], rp)[0]
+        non_tie = int((differs & ~tie).sum())
+        est_err = float((kest - rest).abs().max())
+        if alpha >= 1.0:
+            lw_err = float((klw - rlw).abs().max())
+        else:
+            lw_err = float((klw - pf_kernels.importance_weights(args[0], args[1], kidx, alpha))
+                           .abs().max())
+        results.append({"kernel": name, "shape": [n, m, d], "alpha": alpha,
+                        "index_mismatch_non_tie": non_tie, "tie_slots": int(tie.sum()),
+                        "mismatch_at_ties": int((differs & tie).sum()),
+                        "max_abs_err_est": est_err, "max_abs_err_lw": lw_err})
+        check(non_tie == 0, f"{name} {n, m, d, alpha}: {non_tie} non-tie index mismatches")
+        check(est_err <= EST_ATOL_KERNEL, f"{name} {n, m, d, alpha}: estimate error {est_err}")
+        check(lw_err <= (0.0 if alpha >= 1 else SOFT_LW_ATOL),
+              f"{name} {n, m, d, alpha}: log-weight error {lw_err}")
+        worst[name] = max(worst[name], est_err)
+    emit({"phase": "b4_b5_vs_plain", "tie": TIE, "est_atol": EST_ATOL_KERNEL,
+          "soft_lw_atol": SOFT_LW_ATOL, "results": results})
+    return worst
+
+
+def door_sequences(defn, t, n, m, device, seed, enabled=None):
+    """Seeded inputs of an eval loop on the card, and B3's operands: (obs,
+    controls, belief, eps, uniforms, ops)."""
+    import torch
+
+    from multimodalfilter_tpu_torch.ops import fused_step
+    from multimodalfilter_tpu_torch.types import ParticleBelief
+
+    obs, controls = sequences(t, n, seed)
+    obs = {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
+    controls = torch.from_numpy(controls).to(device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    belief = ParticleBelief(0.3 * torch.randn((n, m, 3), generator=g, device=device),
+                            torch.full((n, m), -math.log(m), device=device))
+    eps = torch.randn((t, n * m, 3), generator=g, device=device)
+    uniforms = torch.rand((t, n, m), generator=g, device=device)
+    with torch.no_grad():
+        features, ctrl = defn.encode_sequences(obs, controls, enabled)
+        ops = fused_step.pack_operands(defn, features, ctrl, eps, enabled, m)
+    return obs, controls, belief, eps, uniforms, ops
+
+
+def first_divergence(record, log_liks, pf_kernels):
+    """Per trajectory (N,), the first step whose draws from the other run's
+    log-likelihoods `log_liks` (T, N, M) differ from the plain run's, or
+    hold a tie (T if none). `record` holds the plain run's tail inputs, one
+    (log_weights, log_liks, uniforms, ...) per step. Up to that step both
+    runs resample the same particles, so their beliefs differ by rounding
+    only."""
+    import torch
+
+    t_total = len(record)
+    first = torch.full((record[0][1].shape[0],), t_total, dtype=torch.long,
+                       device=log_liks.device)
+    for t, (lw, ll, u) in enumerate(r[:3] for r in record):
+        _, cdf_a = pf_kernels.resample_cdf(lw, ll)
+        _, cdf_b = pf_kernels.resample_cdf(lw, log_liks[t])
+        a = torch.searchsorted(cdf_a, u.contiguous())
+        b = torch.searchsorted(cdf_b, u.contiguous())
+        bad = (a != b).any(dim=1) | (pf_kernels.draw_gaps(lw, log_liks[t], u) <= TIE).any(dim=1)
+        first = torch.where(bad & (first == t_total), t, first)
+    return first
+
+
+def compare_through(est_a, est_b, first):
+    """(max |est_a - est_b|, max |est_b|, steps compared) over each
+    trajectory's steps before `first`."""
+    import torch
+
+    mask = torch.arange(est_a.shape[0], device=est_a.device)[:, None] < first[None, :]
+    if not bool(mask.any()):
+        return 0.0, 0.0, 0
+    return (float((est_a - est_b).abs().amax(-1)[mask].max()),
+            float(est_b.abs().amax(-1)[mask].max()), int(mask.sum()))
+
+
+def b3_whole_loop(fused_step, pf_kernels, ops, belief, uniforms) -> dict:
+    """One launch over all T steps against the plain run: the kernel's
+    log-likelihoods within LL_RTOL of the plain run's and its estimates
+    within B3_LOOP_ATOL, both relative to their scale where it exceeds 1,
+    over each trajectory's steps before its draws first diverge."""
+    import torch
+
+    with torch.no_grad():
+        record = []
+        rb, rest = fused_step.fused_forward_reference(ops, belief, uniforms, record=record)
+        lls = torch.empty(uniforms.shape, device=uniforms.device)
+        kb, kest = fused_step.fused_forward_kernel(ops, belief, uniforms, log_liks_out=lls)
+        torch.cuda.synchronize()
+    check(bool(torch.isfinite(kest).all()), "B3: non-finite estimates")
+    first = first_divergence(record, lls, pf_kernels)
+    err, scale, steps = compare_through(kest, rest, first)
+    ll_ref = torch.stack([r[1] for r in record])
+    mask = torch.arange(len(record), device=lls.device)[:, None] < first[None, :]
+    ll_rel = 0.0
+    if bool(mask.any()):
+        ll_rel = float((lls - ll_ref).abs().amax(-1)[mask].max()) / max(
+            1.0, float(ll_ref.abs().amax(-1)[mask].max()))
+    out = {"T": uniforms.shape[0], "trajectory_steps_compared": steps,
+           "trajectories_never_diverged": int((first == len(record)).sum()),
+           "max_abs_err_est": err, "est_scale": scale, "max_rel_err_log_liks": ll_rel}
+    check(steps > 0, f"B3 whole loop: the draws diverged at the first step: {out}")
+    check(err <= B3_LOOP_ATOL * max(1.0, scale), f"B3 whole loop: {out}")
+    check(ll_rel <= LL_RTOL, f"B3 whole loop log-likelihoods: {out}")
+    return out
+
+
+def phase_b3(door_models, fused_step, pf_kernels, device) -> dict:
+    """B3 against fused_forward_reference on the card. Step by step at the
+    main path's shapes (N=16, T=100, M=300, K=2): every step one B3 launch
+    with T=1 from the plain run's belief. The kernel's log-likelihoods must
+    agree with the plain trunks' (LL_RTOL of their scale); then, given the
+    kernel's own log-likelihoods, its estimate must agree with the plain
+    tail's within 1e-5 and its resampled particles with the plain tail's
+    draws off ties (PARTICLE_ATOL), both relative to their scale where it
+    exceeds 1. (At random weights the log-likelihoods reach magnitudes where
+    the two trunks' rounding moves the CDF by more than TIE, so the plain
+    run's own draws are not the yardstick; they are reported.) Then one
+    whole-loop launch, and other shapes."""
+    import dataclasses
+
+    import torch
+
+    model = door_models.DoorCrossmodalParticleFilter(device=device, seed=0)
+    defn = dataclasses.replace(model.definition, num_particles_eval=M)
+    _, _, belief, _, uniforms, ops = door_sequences(defn, T, N, M, device, seed=50)
+    worst = {"ll_rel": 0.0, "est": 0.0, "est_rel": 0.0, "particles_rel": 0.0,
+             "plain_est": 0.0}
+    ties = plain_flips = 0
+    with torch.no_grad():
+        b = belief
+        for i in range(T):
+            record = []
+            rb, rest = fused_step.fused_forward_reference(ops.step(i), b, uniforms[i:i + 1],
+                                                          record=record)
+            lls = torch.empty((1, N, M), device=device)
+            kb, kest = fused_step.fused_forward_kernel(ops.step(i), b, uniforms[i:i + 1],
+                                                       log_liks_out=lls)
+            torch.cuda.synchronize()
+            lw, ll, u, new = record[0]
+            ll_k = lls[0]
+            worst["ll_rel"] = max(worst["ll_rel"], float((ll_k - ll).abs().max())
+                                  / max(1.0, float(ll.abs().max())))
+            ep, _, eest = pf_kernels.pf_update_and_resample_reference(lw, ll_k, new, u)
+            err = float((kest[0] - eest).abs().max())
+            worst["est"] = max(worst["est"], err)
+            worst["est_rel"] = max(worst["est_rel"], err / max(1.0, float(eest.abs().max())))
+            worst["plain_est"] = max(worst["plain_est"], float((kest - rest).abs().max()))
+            ok = pf_kernels.draw_gaps(lw, ll_k, u) > TIE
+            ties += int((~ok).sum())
+            # Draws that the two trunks' rounding alone moved.
+            _, cdf_r = pf_kernels.resample_cdf(lw, ll)
+            _, cdf_k = pf_kernels.resample_cdf(lw, ll_k)
+            plain_flips += int((torch.searchsorted(cdf_r, u.contiguous())
+                                != torch.searchsorted(cdf_k, u.contiguous())).sum())
+            if bool(ok.any()):
+                diff = (kb.particles - ep).abs().amax(-1)[ok].max()
+                worst["particles_rel"] = max(worst["particles_rel"], float(diff) / max(
+                    1.0, float(new.abs().max())))
+            b = rb
+    check(worst["ll_rel"] <= LL_RTOL, f"B3 per-step log-likelihoods: {worst}")
+    check(worst["est_rel"] <= EST_ATOL_KERNEL, f"B3 per-step estimates: {worst}")
+    check(worst["particles_rel"] <= PARTICLE_ATOL, f"B3 per-step particles: {worst}")
+    whole = b3_whole_loop(fused_step, pf_kernels, ops, belief, uniforms)
+
+    others = []
+    for name, n, m, enabled in B3_OTHER:
+        other = getattr(door_models, name)(device=device, seed=0)
+        odefn = dataclasses.replace(other.definition, num_particles_eval=m)
+        _, _, ob, _, ou, oops = door_sequences(odefn, B3_OTHER_T, n, m, device, seed=51,
+                                               enabled=enabled)
+        others.append({"model": name, "N": n, "M": m, "enabled": enabled,
+                       **b3_whole_loop(fused_step, pf_kernels, oops, ob, ou)})
+    emit({"phase": "b3_vs_plain", "N": N, "T": T, "M": M, "K": 2, "tie": TIE,
+          "est_atol": EST_ATOL_KERNEL, "particle_atol": PARTICLE_ATOL, "ll_rtol": LL_RTOL,
+          "loop_atol": B3_LOOP_ATOL, "per_step": worst, "per_step_tie_draws": ties,
+          "per_step_draws_moved_by_trunk_rounding": plain_flips,
+          "whole_loop": whole, "other_shapes": others})
+    return {"max_abs_err_est": worst["est"], "defn": defn}
+
+
+def phase_serving(door_models, fused_step, pf_kernels, pf_module, device) -> dict:
+    """The serving route: DoorCrossmodalParticleFilter built through
+    StatefulFilter with MMF_TPU_FUSED_STEP=1 in its environment,
+    forward_loop at N=16, T=100, M=300: B3 once per loop, B1 never; its
+    estimates against the per-step path of the same model (same weights,
+    noise and uniforms) through the steps before the per-step run's first
+    tie; then filter-steps/s of both at N=16 and per-step latency at N=1."""
+    import dataclasses
+    import os
+
+    import torch
+
+    os.environ["MMF_TPU_FUSED_STEP"] = "1"
+    try:
+        model = door_models.DoorCrossmodalParticleFilter(device=device, seed=0)
+    finally:
+        del os.environ["MMF_TPU_FUSED_STEP"]
+    check(model.definition.fused_step, "MMF_TPU_FUSED_STEP=1 did not set fused_step")
+    model.eval()
+    fused_defn = dataclasses.replace(model.definition, num_particles_eval=M)
+    step_defn = dataclasses.replace(fused_defn, fused_step=False)
+    obs, controls = sequences(T, N, seed=60)
+    mean, cov = initial_state(N)
+    g = torch.Generator(device=device).manual_seed(61)
+    eps_seq = torch.randn((T, N * M, 3), generator=g, device=device)
+    uni_seq = torch.rand((T, N, M), generator=g, device=device)
+
+    model.definition = fused_defn
+    model.initialize_beliefs(mean=mean, covariance=cov)
+    belief0 = type(model.belief)(*(x.clone() for x in model.belief))
+    b3, b1 = fused_step.fused_forward_kernel, pf_kernels.launch_b1
+    b3.launches = b1.launches = 0
+    est_fused = model.forward_loop(observations=obs, controls=controls,
+                                   eps_seq=eps_seq, uniforms_seq=uni_seq)
+    torch.cuda.synchronize()
+    launches = {"b3": b3.launches, "b1": b1.launches}
+    check(fused_step.packing_report() is None, f"fused route fell back: {fused_step.packing_report()}")
+    check(launches == {"b3": 1, "b1": 0}, f"serving launches {launches}")
+    check(tuple(est_fused.shape) == (T, N, 3) and bool(torch.isfinite(est_fused).all()),
+          "serving estimates")
+
+    # The same operands through B3 directly: the route must give the same
+    # estimates, and its log-likelihoods let the per-step path's draws be
+    # compared step by step.
+    with torch.no_grad():
+        obs_d = {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
+        features, ctrl = fused_defn.encode_sequences(obs_d, torch.from_numpy(controls).to(device))
+        ops = fused_step.pack_operands(fused_defn, features, ctrl, eps_seq, None, M)
+        lls = torch.empty((T, N, M), device=device)
+        _, est_direct = fused_step.fused_forward_kernel(ops, belief0, uni_seq, log_liks_out=lls)
+        torch.cuda.synchronize()
+    route_err = float((est_direct - est_fused).abs().max())
+    check(route_err <= 1e-6 * max(1.0, float(est_fused.abs().max())),
+          f"the route and a direct B3 launch differ by {route_err}")
+
+    # The per-step path of the same model, recording its tail inputs.
+    record = []
+    real_tail = pf_module.pf_update_and_resample
+
+    def recording_tail(log_weights, log_liks, particles, uniforms, **kwargs):
+        record.append((log_weights, log_liks, uniforms))
+        return real_tail(log_weights, log_liks, particles, uniforms, **kwargs)
+
+    pf_module.pf_update_and_resample = recording_tail
+    try:
+        model.definition = step_defn
+        model._belief = belief0
+        est_step = model.forward_loop(observations=obs, controls=controls,
+                                      eps_seq=eps_seq, uniforms_seq=uni_seq)
+        torch.cuda.synchronize()
+    finally:
+        pf_module.pf_update_and_resample = real_tail
+    check(b1.launches == T, f"per-step path launched B1 {b1.launches} times")
+    first = first_divergence(record, lls, pf_kernels)
+    err, scale, steps = compare_through(est_fused, est_step, first)
+    check(steps > 0, "the per-step path's draws diverged from B3's at the first step")
+    check(err <= LOOP_ATOL * max(1.0, scale), f"fused vs per-step estimates {err}")
+
+    rates = {}
+    for n in (N, 1):
+        o, c = sequences(T, n, seed=62)
+        o = {k: torch.from_numpy(v).to(device) for k, v in o.items()}
+        c = torch.from_numpy(c).to(device)
+        mn, cv = initial_state(n)
+        for route, defn in (("per_step", step_defn), ("fused", fused_defn),
+                            ("fused_2", fused_defn), ("per_step_2", step_defn)):
+            model.definition = defn
+
+            def run():
+                model.initialize_beliefs(mean=mn, covariance=cv)
+                model.forward_loop(observations=o, controls=c)
+
+            ms, host_ms = loop_ms(run, repeats=5)
+            rates[f"N{n}_{route}"] = {"ms_per_loop": ms, "host_ms_per_loop": host_ms,
+                                      "filter_steps_per_s": T * n / (ms / 1e3),
+                                      "ms_per_step": ms / T}
+    model.definition = fused_defn
+    profile = serving_profile(model, device)
+    emit({"phase": "serving_path", "model": "DoorCrossmodalParticleFilter",
+          "knob": "MMF_TPU_FUSED_STEP=1", "units": 64, "N": N, "T": T, "M": M,
+          "launches": launches, "route_vs_direct_launch": route_err,
+          "vs_per_step": {"trajectory_steps_compared": steps, "max_abs_err_est": err,
+                          "est_scale": scale, "atol": LOOP_ATOL},
+          "times": rates, "profile": profile, "tf32": False})
+    return {"launches": launches, "rates": rates}
+
+
+def serving_profile(model, device) -> dict:
+    """Where the serving loop's time goes: one warm fused forward_loop at
+    N=16, T=100, M=300 under torch.profiler (device busy share, B3's share
+    of it, the largest kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    obs, controls = sequences(T, N, seed=63)
+    mean, cov = initial_state(N)
+
+    def run():
+        model.initialize_beliefs(mean=mean, covariance=cov)
+        model.forward_loop(observations=obs, controls=controls)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    if not kernels:
+        return {"device_time": "not measured"}
+    by_name, busy_us = kernel_totals(kernels)
+    b3_us = sum(v[1] for k, v in by_name.items() if "pf_fused_forward" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us, "b3_ms": b3_us / 1e3,
+            "b3_share_of_wall": b3_us / wall_us, "device_kernels": len(kernels),
+            "top_kernels": [{"name": k[:80], "count": c, "ms": us / 1e3}
+                            for k, (c, us) in top]}
+
+
+def phase_tail_paths(door_models, pf_kernels, device) -> dict:
+    """The per-step eval loop through B4 (alpha=0.9) and through B5 (M=2048
+    and M=16384): each launches its kernel once a step, B1 never."""
+    import dataclasses
+
+    import torch
+
+    model = door_models.DoorCrossmodalParticleFilter(device=device, seed=0)
+    model.eval()
+    out = {}
+    for name, m, t, alpha in TAIL_PATHS:
+        model.definition = dataclasses.replace(model.definition, num_particles_eval=m,
+                                               soft_resample_alpha=alpha)
+        obs, controls = sequences(t, N, seed=70)
+        mean, cov = initial_state(N)
+        model.initialize_beliefs(mean=mean, covariance=cov)
+        counters = {k: getattr(pf_kernels, f"launch_{k}") for k in ("b1", "b4", "b5")}
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        est = model.forward_loop(observations=obs, controls=controls)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        expected = {k: (t if k == name else 0) for k in counters}
+        check(launches == expected, f"{name} path M={m}: launches {launches}")
+        check(bool(torch.isfinite(est).all()), f"{name} path M={m}: non-finite estimates")
+        out[f"{name}_M{m}"] = {"N": N, "M": m, "T": t, "alpha": alpha, "launches": launches,
+                               "host_ms_first_loop": wall * 1e3}
+    emit({"phase": "tail_paths", "runs": out})
+    return out
+
+
+def phase_new_times(fused_step, pf_kernels, b3_defn, device) -> dict:
+    """B3, B4 and B5 at their paths' shapes: host-paced time (CUDA events
+    around back-to-back calls), device time per launch (torch.profiler), the
+    plain version's time and the bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    _, _, belief, _, uniforms, ops = door_sequences(b3_defn, T, N, M, device, seed=80)
+    with torch.no_grad():
+        k_ms = cuda_ms(lambda: fused_step.fused_forward_kernel(ops, belief, uniforms), repeats=5)
+        p_ms = cuda_ms(lambda: fused_step.fused_forward_reference(ops, belief, uniforms),
+                       repeats=3, warmup=1)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fused_step.fused_forward_kernel(ops, belief, uniforms)
+            torch.cuda.synchronize()
+    dev = [e.time_range.elapsed_us() for e in device_kernels(prof)
+           if "pf_fused_forward" in e.name]
+    bound, bound_by, flops = b3_bound_ms(T, N, M, 3, 2)
+    out = {"b3": {"shape": [T, N, M, 3, 2], "ms": k_ms, "plain_ms": p_ms,
+                  "device_ms": statistics.median(dev) / 1e3 if dev else None,
+                  "bound_ms": bound, "bound_by": bound_by, "flops": flops,
+                  "achieved_tflops": flops / (k_ms / 1e3) / 1e12,
+                  "sms_busy": N, "library_ms": None}}
+    for name, (n, m, d, alpha) in (("b4", (N, M, 3, SOFT_ALPHA)),
+                                   ("b5", (N, 2048, 3, 1.0)),
+                                   ("b5_M16384", (N, 16384, 3, 1.0))):
+        args = b1_inputs(n, m, d, device, seed=81)
+        reps = 200 if m <= 2048 else 50
+
+        def many(fn):
+            return lambda: [fn(*args, alpha=alpha) for _ in range(reps)]
+
+        k = cuda_ms(many(pf_kernels.pf_update_and_resample), repeats=5) / reps
+        p = cuda_ms(many(pf_kernels.pf_update_and_resample_reference), repeats=5) / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                pf_kernels.pf_update_and_resample(*args, alpha=alpha)
+            torch.cuda.synchronize()
+        dev = [e.time_range.elapsed_us() for e in device_kernels(prof)
+               if "pf_tail_kernel" in e.name]
+        bound, bound_by = tail_bound_ms(n, m, d, alpha < 1.0)
+        out[name] = {"shape": [n, m, d], "alpha": alpha, "ms": k, "plain_ms": p,
+                     "device_ms": statistics.median(dev) / 1e3 if dev else None,
+                     "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    emit({"phase": "new_kernel_times", **out, "tf32": False})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -795,7 +1295,7 @@ def main() -> int:
     try:
         from multimodalfilter_tpu_torch.crossmodal import door_models
         from multimodalfilter_tpu_torch.filtering import pf as pf_module
-        from multimodalfilter_tpu_torch.ops import _build, pf_estimate, pf_kernels
+        from multimodalfilter_tpu_torch.ops import _build, fused_step, pf_estimate, pf_kernels
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 1
@@ -807,7 +1307,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     built = _build.build()
     build_s = time.perf_counter() - t0
     emit({"phase": "card", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
@@ -816,19 +1316,25 @@ def main() -> int:
           "tf32_matmul": False, "tf32_cudnn": False})
 
     b1_check = phase_b1(pf_kernels, device)
+    b45_check = phase_b45(pf_kernels, device)
     b2_check = phase_b2(pf_estimate, device)
+    b3_check = phase_b3(door_models, fused_step, pf_kernels, device)
     main_path = phase_main_path(door_models, pf_kernels, pf_module, device)
+    serving = phase_serving(door_models, fused_step, pf_kernels, pf_module, device)
+    tail_paths = phase_tail_paths(door_models, pf_kernels, device)
     train_path = phase_train_path(
-        door_models, (pf_kernels.pf_update_and_resample,
+        door_models, (pf_kernels.launch_b1,
                       pf_estimate.pf_update_estimate_fwd,
                       pf_estimate.pf_update_estimate_bwd), device)
     times = phase_times(main_path["model"], pf_kernels, device)
+    new_times = phase_new_times(fused_step, pf_kernels, b3_check["defn"], device)
     b2_times, train_rates = phase_train_times(
         train_path["model"], train_path["trajectories"], pf_estimate, device)
     phase_profile(main_path["model"], pf_kernels, device)
     phase_train_profile(train_path["model"], train_path["trajectories"], pf_estimate,
                         device, train_rates[0]["ms_per_step"])
 
+    emit({"phase": "done", "wall_s": time.perf_counter() - start})
     emit({"kernels": [{
         "name": "pf_update_and_resample",
         "route": "cuda",
@@ -857,7 +1363,28 @@ def main() -> int:
         "bound_ms": b2_times[f"{key}_{TRAIN_B}x{TRAIN_M}x3"]["bound_ms"],
         "bound_by": b2_times[f"{key}_{TRAIN_B}x{TRAIN_M}x3"]["bound_by"],
         "library_ms": None,
-    } for part, key, line in (("fwd", "b2f", 458), ("bwd", "b2b", 486))]})
+    } for part, key, line in (("fwd", "b2f", 458), ("bwd", "b2b", 486))] + [{
+        "name": "pf_fused_forward",
+        "route": "cuda",
+        "source": "multimodalfilter_tpu_torch/csrc/pf_fused_step.cu",
+        "replaces": "multimodalfilter_tpu/ops/pallas_fused_step.py:158",
+        "launches": serving["launches"]["b3"],
+        "max_abs_err": b3_check["max_abs_err_est"],
+        "shape": [T, N, M, 3, 2],
+        **{k: new_times["b3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "multimodalfilter_tpu_torch/csrc/pf_resample.cu",
+        "replaces": f"multimodalfilter_tpu/ops/pallas_pf.py:{line}",
+        "launches": tail_paths[path]["launches"][key],
+        "max_abs_err": b45_check[key],
+        "shape": new_times[key]["shape"],
+        **{k: new_times[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+    } for name, key, line, path in (("pf_soft_resample", "b4", 134, f"b4_M{M}"),
+                                    ("pf_resample_large", "b5", 217, "b5_M2048"))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,11 @@
 The particle axis M is fused with batch N into one (N*M, ...) batch for the
 dynamics network. ``forward_loop`` always hoists the observation encoders
 and the control encoder over all T*N frames and pre-draws the noise and
-uniforms. The step tail is chosen by device: for CUDA tensors the B1 kernel
-in eval (``ops/pf_kernels.py``) and the B2 kernels, forward and backward, in
-train (``ops/pf_estimate.py``); their plain versions for CPU tensors.
+uniforms. The step tail is chosen by device: for CUDA tensors, in eval, B1
+(multinomial), B4 (soft) or B5 (M > 1024) (``ops/pf_kernels.py``), in train
+the B2 kernels, forward and backward (``ops/pf_estimate.py``); their plain
+versions for CPU tensors. With ``fused_step`` the eval ``forward_loop`` runs
+as one kernel, B3 (``ops/fused_step.py``), when the config qualifies.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops import fused_step as _fused
 from ..ops.pf_estimate import pf_update_estimate, pf_update_estimate_reference
 from ..ops.pf_kernels import SMALL_M_MAX, pf_update_and_resample
 from ..ops.resampling import multinomial_resample, soft_resample
@@ -44,6 +47,16 @@ class ParticleFilterDef(FilterDef):
     num_particles_train: int = 30
     num_particles_eval: int = 300
     soft_resample_alpha: float = 1.0
+    # Run the whole eval forward_loop as one kernel, B3 (ops/fused_step.py):
+    # the small-N serving route (MMF_TPU_FUSED_STEP=1, with_fused_step). The
+    # JAX route also needs pallas_resample; the port has no such field, since
+    # it picks kernels by device, so this field alone selects the route. On
+    # CUDA it launches B3 or raises; on the CPU it runs B3's plain version. A
+    # config B3 does not cover (soft resampling, M > 512, units != 64,
+    # non-diagonal noise, ...) takes the per-step path, with the reason in
+    # ops.fused_step.packing_report() and one warning. Same recursion, sums
+    # in another order: tie-level resampling draws can differ.
+    fused_step: bool = False
 
     def num_particles(self, train: bool) -> int:
         return self.num_particles_train if train else self.num_particles_eval
@@ -114,17 +127,13 @@ class ParticleFilterDef(FilterDef):
         if uniforms is None:
             uniforms = torch.rand((n, m), generator=generator,
                                   dtype=particles.dtype, device=particles.device)
-        if particles.is_cuda and self.soft_resample_alpha < 1.0:
-            raise NotImplementedError(
-                "soft resampling on CUDA needs the kernel B4 "
-                "(pallas_pf.py::_pf_soft_kernel), not yet ported"
-            )
-        # The B1 kernel on CUDA (which raises for M > SMALL_M_MAX: B5); its
-        # plain version on the CPU.
+        # On CUDA one of B1, B4, B5 by alpha and M; on the CPU B1's plain
+        # version.
         if particles.is_cuda or (self.soft_resample_alpha >= 1.0 and m <= SMALL_M_MAX):
             particles, log_weights, estimate = pf_update_and_resample(
                 log_weights.contiguous(), log_liks.contiguous(),
                 particles.contiguous(), uniforms.contiguous(),
+                alpha=self.soft_resample_alpha,
             )
             return ParticleBelief(particles, log_weights), estimate
 
@@ -156,6 +165,24 @@ class ParticleFilterDef(FilterDef):
                 generator=generator,
             )
 
+    def encode_sequences(self, observations_seq, controls_seq,
+                         enabled: Optional[Tuple[bool, ...]] = None):
+        """``forward_loop``'s hoisted, carry-independent inputs: the
+        observation features (T, N, ...) of the enabled modalities (and the
+        gate's log-weights) and the control features (T, N, U), or None when
+        the dynamics net does not split."""
+        t, n = controls_seq.shape[:2]
+        flat_obs = _tree_map(lambda v: v.reshape((t * n,) + v.shape[2:]), observations_seq)
+        features = self.measurement_model.encode_observations(flat_obs, enabled=enabled)
+        features_seq = _tree_map(lambda v: v.reshape((t, n) + v.shape[1:]), features)
+        ctrl_feat_seq = None
+        if self.dynamics_model.supports_control_hoist:
+            ctrl_feat = self.dynamics_model.encode_controls(
+                controls_seq.reshape((t * n,) + controls_seq.shape[2:])
+            )
+            ctrl_feat_seq = ctrl_feat.reshape((t, n) + ctrl_feat.shape[1:])
+        return features_seq, ctrl_feat_seq
+
     def forward_loop(self, belief, observations_seq, controls_seq, *,
                      train: bool, enabled: Optional[Tuple[bool, ...]] = None,
                      eps_seq=None, uniforms_seq=None,
@@ -167,29 +194,17 @@ class ParticleFilterDef(FilterDef):
 
         The observation encoders (where the FLOPs are) and the control
         encoder are carry-independent, so they run once over all T*N frames
-        before the loop."""
+        before the loop. With ``fused_step`` (eval) the loop is one kernel,
+        B3, when the config qualifies."""
         with torch.set_grad_enabled(train):
             t, n = controls_seq.shape[:2]
             m = belief.particles.shape[1]
             d = self.state_dim
             device, dtype = belief.particles.device, belief.particles.dtype
 
-            flat_obs = _tree_map(
-                lambda v: v.reshape((t * n,) + v.shape[2:]), observations_seq
+            features_seq, ctrl_feat_seq = self.encode_sequences(
+                observations_seq, controls_seq, enabled=enabled
             )
-            features = self.measurement_model.encode_observations(
-                flat_obs, enabled=enabled
-            )
-            features_seq = _tree_map(
-                lambda v: v.reshape((t, n) + v.shape[1:]), features
-            )
-            ctrl_feat_seq = None
-            if self.dynamics_model.supports_control_hoist:
-                ctrl_feat = self.dynamics_model.encode_controls(
-                    controls_seq.reshape((t * n,) + controls_seq.shape[2:])
-                )
-                ctrl_feat_seq = ctrl_feat.reshape((t, n) + ctrl_feat.shape[1:])
-
             if eps_seq is None:
                 eps_seq = torch.randn((t, n * m, d), generator=generator,
                                       dtype=dtype, device=device)
@@ -202,6 +217,12 @@ class ParticleFilterDef(FilterDef):
             if not train and tuple(uniforms_seq.shape) != (t, n, m):
                 raise ValueError(f"uniforms_seq must be {(t, n, m)}, "
                                  f"got {tuple(uniforms_seq.shape)}")
+
+            if self.fused_step and not train:
+                out = _fused.try_fused_forward(self, belief, features_seq, ctrl_feat_seq,
+                                               eps_seq, uniforms_seq, enabled)
+                if out is not None:
+                    return out
 
             estimates = []
             for i in range(t):

@@ -8,17 +8,21 @@ module tree whose state-dict keys are the flax param paths, loadable with
 set of frozen parameter paths. ``ModuleHandle`` is a view of a submodule
 (``filter_model.measurement_model.crossmodal_weight_model``): its dotted
 path and sub-def, which is what the train loops and ``freeze_module`` need.
+``apply_serving_knobs`` reads the ``MMF_TPU_*`` serving knobs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, List, Optional, Tuple
 
 import torch
 
 from .._device import Device, resolve_device
+from ..utils.precision import with_fused_step
 from ..weights import init_params, load_jax_params
+
 
 def _join(path: str, name: str) -> str:
     return f"{path}.{name}" if path else name
@@ -87,8 +91,56 @@ def _child_accessor(root, path: str, definition, name: str):
     )
 
 
+# Knobs the port does not serve yet: (env name, on under MMF_TPU_SERVING=1,
+# what it promises, the ROADMAP item that ports it).
+_UNPORTED_KNOBS = (
+    ("MMF_TPU_BF16", True, "bf16 encoder compute", "A8"),
+    ("MMF_TPU_FOLD_ENC", True, "the folded image-encoder tail", "A8"),
+    ("MMF_TPU_STACK_ENC", False, "channel-stacked image encoders", "A12"),
+)
+
+
+def apply_serving_knobs(definition):
+    """The JAX facade's serving knobs, read from the environment
+    (wrappers.py:160-239 of the JAX package):
+
+    - ``MMF_TPU_FUSED_STEP=1`` applies ``with_fused_step``: the eval
+      forward_loop of a qualifying particle filter runs as one kernel, B3.
+    - ``MMF_TPU_PALLAS`` is accepted and has no effect: the port always runs
+      its kernels on CUDA tensors.
+    - ``MMF_TPU_SCAN_UNROLL`` is accepted (an integer, as in JAX) and has no
+      effect: the port's forward_loop is a Python loop, with no scan to
+      unroll.
+    - ``MMF_TPU_BF16``, ``MMF_TPU_FOLD_ENC``, ``MMF_TPU_STACK_ENC`` and
+      ``MMF_TPU_SERVING`` (which turns on BF16 and FOLD_ENC unless they are
+      set to 0) raise ``NotImplementedError`` naming the ROADMAP item, rather
+      than serve in a precision or layout the knob did not promise.
+    """
+    serving = os.environ.get("MMF_TPU_SERVING", "0") == "1"
+
+    def knob(name: str, default_on: bool) -> bool:
+        return os.environ.get(name, "1" if default_on else "0") == "1"
+
+    int(os.environ.get("MMF_TPU_SCAN_UNROLL", "1"))
+    for name, under_serving, what, item in _UNPORTED_KNOBS:
+        if knob(name, serving and under_serving):
+            via = " (through MMF_TPU_SERVING=1)" if name not in os.environ else ""
+            raise NotImplementedError(
+                f"{name}=1{via} asks for {what}, which the PyTorch port does not "
+                f"have yet (ROADMAP {item}); unset it to serve in fp32"
+            )
+    if knob("MMF_TPU_FUSED_STEP", False):
+        definition = with_fused_step(definition, True)
+    return definition
+
+
 class StatefulFilter:
+    """Stateful facade over a filter def. The serving knobs ``MMF_TPU_*``
+    are read from the environment at construction
+    (``apply_serving_knobs``)."""
+
     def __init__(self, definition, *, device: Device = None, seed: int = 0):
+        definition = apply_serving_knobs(definition)
         self.device = resolve_device(device)
         self.definition = definition
         self.params = definition.module()

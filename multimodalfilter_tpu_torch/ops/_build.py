@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/lib<name>.so`` at the repository root on
-first use (rebuilt when the source is newer) and loaded with ``ctypes``.
+first use (rebuilt when the source or a ``csrc/*.cuh`` header it may include
+is newer) and loaded with ``ctypes``.
 Building needs CUDA and ``nvcc``; without them this raises, and nothing
 falls back to another implementation.
 """
@@ -43,9 +44,12 @@ def _library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or any shared header."""
     lib = _library_path(name)
-    src = CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(s.stat().st_mtime for s in sources)
 
 
 def build(names: Optional[Iterable[str]] = None) -> List[str]:

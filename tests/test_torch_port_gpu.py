@@ -40,10 +40,10 @@ def _b1_inputs(n, m, d, device, seed=0):
                                    (4, 1000, 2), (4, 1024, 2)])
 def test_b1_kernel_matches_plain_version(cuda, n, m, d):
     args = _b1_inputs(n, m, d, cuda)
-    before = pf_kernels.pf_update_and_resample.launches
+    before = pf_kernels.launch_b1.launches
     kp, klw, kest = pf_kernels.pf_update_and_resample(*args)
     torch.cuda.synchronize()
-    assert pf_kernels.pf_update_and_resample.launches == before + 1
+    assert pf_kernels.launch_b1.launches == before + 1
     rp, rlw, rest = pf_kernels.pf_update_and_resample_reference(*args)
     _, cdf = pf_kernels.resample_cdf(args[0], args[1])
     ok = pf_kernels.tie_gaps(cdf, args[3]) > TIE
@@ -59,9 +59,9 @@ def test_b1_kernel_refuses_what_it_does_not_take(cuda):
         pf_kernels.pf_update_and_resample(lw.t().contiguous().t(), ll, particles, uniforms)
     with pytest.raises(ValueError, match="float32"):
         pf_kernels.pf_update_and_resample(lw.double(), ll, particles, uniforms)
-    big = _b1_inputs(1, 1025, 3, cuda)
-    with pytest.raises(NotImplementedError, match="B5"):
-        pf_kernels.pf_update_and_resample(*big)
+    wide = _b1_inputs(2, 8, 9, cuda)
+    with pytest.raises(ValueError, match="D <= 8"):
+        pf_kernels.pf_update_and_resample(*wide)
 
 
 @pytest.mark.gpu
@@ -78,8 +78,8 @@ def test_crossmodal_pf_eval_loop_launches_b1_once_per_step(cuda):
     controls = r.normal(size=(t, n, 7)).astype(np.float32)
     model.initialize_beliefs(mean=np.zeros((n, 3), np.float32),
                              covariance=np.tile(np.eye(3, dtype=np.float32), (n, 1, 1)))
-    before = pf_kernels.pf_update_and_resample.launches
+    before = pf_kernels.launch_b1.launches
     est = model.forward_loop(observations=obs, controls=controls)
     torch.cuda.synchronize()
-    assert pf_kernels.pf_update_and_resample.launches == before + t
+    assert pf_kernels.launch_b1.launches == before + t
     assert est.shape == (t, n, 3) and torch.isfinite(est).all()

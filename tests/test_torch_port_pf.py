@@ -76,12 +76,12 @@ def test_b1_reference_matches_pallas_kernel(n, m, d):
 
 def test_b1_wrapper_takes_the_plain_version_on_cpu():
     args = _t(*_b1_inputs(2, 50, 3))
-    before = pf_kernels.pf_update_and_resample.launches
+    before = pf_kernels.launch_b1.launches
     out = pf_kernels.pf_update_and_resample(*args)
     ref = pf_kernels.pf_update_and_resample_reference(*args)
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
-    assert pf_kernels.pf_update_and_resample.launches == before
+    assert pf_kernels.launch_b1.launches == before
 
 
 def test_tie_gaps():
@@ -191,10 +191,10 @@ def _run_both(jm, tm, t=5, n=2, m=32, enabled=None, train=False,
         # Record each step's CDF against its uniforms (the tie premise).
         real = tpf.pf_update_and_resample
 
-        def recording(log_weights, log_liks, particles, uniforms):
+        def recording(log_weights, log_liks, particles, uniforms, **kwargs):
             _, cdf = pf_kernels.resample_cdf(log_weights, log_liks)
             gaps.append(float(pf_kernels.tie_gaps(cdf, uniforms).min()))
-            return real(log_weights, log_liks, particles, uniforms)
+            return real(log_weights, log_liks, particles, uniforms, **kwargs)
 
         monkeypatch.setattr(tpf, "pf_update_and_resample", recording)
     _, est_t = tm.definition.forward_loop(

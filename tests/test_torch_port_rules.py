@@ -58,7 +58,7 @@ def test_kernel_wrapper_does_not_fall_back_for_non_cpu_tensors():
     meta = dict(device="meta")
     args = (torch.empty(n, m, **meta), torch.empty(n, m, **meta),
             torch.empty(n, m, d, **meta), torch.empty(n, m, **meta))
-    before = pf_kernels.pf_update_and_resample.launches
+    before = pf_kernels.launch_b1.launches
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         pf_kernels.pf_update_and_resample(*args)
-    assert pf_kernels.pf_update_and_resample.launches == before
+    assert pf_kernels.launch_b1.launches == before

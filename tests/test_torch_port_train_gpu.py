@@ -114,7 +114,7 @@ def test_train_e2e_epoch_launches_b2_every_step(cuda, tmp_path):
     buddy = Buddy("gpu", model, log_dir=str(tmp_path))
     train_helpers.configure(buddy=buddy, trajectories=trajectories)
     counters = (pf_estimate.pf_update_estimate_fwd, pf_estimate.pf_update_estimate_bwd,
-                pf_kernels.pf_update_and_resample)
+                pf_kernels.launch_b1)
     before = [c.launches for c in counters]
     loss = train_helpers.train_e2e(subsequence_length=seq_len, epochs=1, batch_size=b)
     torch.cuda.synchronize()
