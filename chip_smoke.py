@@ -23,7 +23,13 @@ through its kernels, and times them:
 
 B3 is also held against its plain version step by step (T=100 launches of
 one step, each from the plain run's belief), over a whole loop, and at other
-shapes; B4 and B5 at ten shapes up to M=20,000.
+shapes, the edges of its thread-block clusters among them (one block per
+64-particle tile: M=64, 65, 300, 512; N=1 and 16; and an N whose clusters
+do not all fit the card at once); B4 and B5 at twelve shapes up to
+M=60,000 (B5 splits each row over a cluster of up to 8 blocks; rows of
+more than ~52,000 particles take its strided kernel). The times report
+each cluster kernel's cluster size, blocks and
+cudaOccupancyMaxActiveClusters, as its C entry reports them.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 means fp32.
 
@@ -58,7 +64,8 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 # (N, M, D, alpha); B4 takes M <= 1024 with alpha < 1, B5 every M > 1024.
 B45_SHAPES = [(16, 300, 3, 0.9), (16, 1, 2, 0.9), (16, 1025, 3, 1.0), (16, 1025, 3, 0.5),
               (16, 2048, 3, 1.0), (16, 2048, 3, 0.5), (4, 16384, 3, 1.0),
-              (4, 16384, 3, 0.5), (2, 20000, 3, 1.0), (2, 20000, 3, 0.5)]
+              (4, 16384, 3, 0.5), (2, 20000, 3, 1.0), (2, 20000, 3, 0.5),
+              (2, 60000, 3, 1.0), (2, 60000, 3, 0.5)]  # the last two: B5's strided kernel
 SOFT_ALPHA = 0.9
 # Soft log-weights: values near -log M (to -9.9 at M = 20,000, where one fp32
 # ulp is ~1e-6), normalised by sums of M exponentials in another order.
@@ -80,8 +87,17 @@ B3_OTHER = [("DoorParticleFilter", 2, 300, None),
             ("DoorCrossmodalParticleFilter", 2, 300, (True, False)),
             ("DoorCrossmodalParticleFilter", 2, 512, None),
             ("DoorCrossmodalParticleFilter", 4, 1, None),
-            ("DoorCrossmodalParticleFilter", 1, 300, None)]
+            ("DoorCrossmodalParticleFilter", 1, 300, None),
+            # The edges of B3's clusters (one block per 64 particles).
+            ("DoorCrossmodalParticleFilter", 1, 64, None),
+            ("DoorCrossmodalParticleFilter", 16, 64, None),
+            ("DoorCrossmodalParticleFilter", 16, 65, None),
+            ("DoorCrossmodalParticleFilter", 1, 65, None),
+            ("DoorCrossmodalParticleFilter", 16, 300, None),
+            ("DoorCrossmodalParticleFilter", 1, 512, None),
+            ("DoorCrossmodalParticleFilter", 16, 512, None)]
 B3_OTHER_T = 10
+B3_WAVE_T = 3  # the launch whose clusters do not all fit at once
 # The per-step eval loop through each tail: (kernel, M, T, alpha) at N=16.
 TAIL_PATHS = [("b4", 300, T, SOFT_ALPHA), ("b5", 2048, T, 1.0), ("b5", 16384, 20, 1.0)]
 
@@ -1045,13 +1061,19 @@ def phase_b3(door_models, fused_step, pf_kernels, device) -> dict:
     check(worst["particles_rel"] <= PARTICLE_ATOL, f"B3 per-step particles: {worst}")
     whole = b3_whole_loop(fused_step, pf_kernels, ops, belief, uniforms)
 
+    # The cluster edges, and one launch of more trajectories than the card
+    # holds clusters at once (the rest run in a second wave).
+    wave_n = fused_step.launch_plan(1, M).max_active_clusters + 4
     others = []
-    for name, n, m, enabled in B3_OTHER:
+    for name, n, m, enabled, t in [(*o, B3_OTHER_T) for o in B3_OTHER] + [
+            ("DoorCrossmodalParticleFilter", wave_n, M, None, B3_WAVE_T)]:
         other = getattr(door_models, name)(device=device, seed=0)
         odefn = dataclasses.replace(other.definition, num_particles_eval=m)
-        _, _, ob, _, ou, oops = door_sequences(odefn, B3_OTHER_T, n, m, device, seed=51,
+        _, _, ob, _, ou, oops = door_sequences(odefn, t, n, m, device, seed=51,
                                                enabled=enabled)
+        plan = fused_step.launch_plan(n, m)
         others.append({"model": name, "N": n, "M": m, "enabled": enabled,
+                       "cluster": plan.cluster, "blocks": plan.blocks,
                        **b3_whole_loop(fused_step, pf_kernels, oops, ob, ou)})
     emit({"phase": "b3_vs_plain", "N": N, "T": T, "M": M, "K": 2, "tie": TIE,
           "est_atol": EST_ATOL_KERNEL, "particle_atol": PARTICLE_ATOL, "ll_rtol": LL_RTOL,
@@ -1256,11 +1278,15 @@ def phase_new_times(fused_step, pf_kernels, b3_defn, device) -> dict:
     dev = [e.time_range.elapsed_us() for e in device_kernels(prof)
            if "pf_fused_forward" in e.name]
     bound, bound_by, flops = b3_bound_ms(T, N, M, 3, 2)
+    plan = fused_step.launch_plan(N, M)
     out = {"b3": {"shape": [T, N, M, 3, 2], "ms": k_ms, "plain_ms": p_ms,
                   "device_ms": statistics.median(dev) / 1e3 if dev else None,
                   "bound_ms": bound, "bound_by": bound_by, "flops": flops,
                   "achieved_tflops": flops / (k_ms / 1e3) / 1e12,
-                  "sms_busy": N, "library_ms": None}}
+                  "cluster": plan.cluster, "blocks": plan.blocks,
+                  "max_active_clusters": plan.max_active_clusters,
+                  "second_wave_from_N": plan.max_active_clusters + 1,
+                  "trunks": "fp32 FMA", "library_ms": None}}
     for name, (n, m, d, alpha) in (("b4", (N, M, 3, SOFT_ALPHA)),
                                    ("b5", (N, 2048, 3, 1.0)),
                                    ("b5_M16384", (N, 16384, 3, 1.0))):
@@ -1276,12 +1302,14 @@ def phase_new_times(fused_step, pf_kernels, b3_defn, device) -> dict:
             for _ in range(20):
                 pf_kernels.pf_update_and_resample(*args, alpha=alpha)
             torch.cuda.synchronize()
-        dev = [e.time_range.elapsed_us() for e in device_kernels(prof)
-               if "pf_tail_kernel" in e.name]
+        kernel_name = "pf_tail_kernel" if name == "b4" else "cluster_tail"
+        dev = [e.time_range.elapsed_us() for e in device_kernels(prof) if kernel_name in e.name]
         bound, bound_by = tail_bound_ms(n, m, d, alpha < 1.0)
         out[name] = {"shape": [n, m, d], "alpha": alpha, "ms": k, "plain_ms": p,
                      "device_ms": statistics.median(dev) / 1e3 if dev else None,
                      "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        if name != "b4":
+            out[name].update(pf_kernels.b5_launch(n, m, alpha)._asdict())
     emit({"phase": "new_kernel_times", **out, "tf32": False})
     return out
 

@@ -21,31 +21,53 @@
 // Layout is the JAX public layout: lw, ll, u (N, M); particles and out
 // (N, M, D) row-major; est (N, D). fp32, contiguous, one device.
 //
-// Design. One kernel, templated on the resampling mode; one thread block
-// per batch row whose threads stride over M, so one source covers every M.
-// The TPU kernels' triangular-matmul cumsum becomes a warp-shuffle block
-// scan walked over the row in tiles of blockDim with a running carry; their
-// (M x M) compare-and-count becomes one binary search per output slot; their
-// one-hot-matmul gather becomes a direct load. Only the CDF is kept: in
-// dynamic shared memory up to M = 16,384 (64 KB, opted in above the 48 KB
-// default), and above that in a scratch row in device memory that the caller
-// allocates. p, the mixture and its log are recomputed from lw + ll where
-// they are needed, so no other M-long row is stored (four would need 256 KB
-// at M = 16,384, more than a block's 227 KB). B1, B4 and B5 are three entry
-// points of this kernel; they differ in mode and in the range of M they take.
+// Design of B1 and B4 (M <= 1024): one thread block per batch row, its
+// threads striding over M (pf_tail.cuh's single-block functions). The TPU
+// kernels' triangular-matmul cumsum becomes a warp-shuffle block scan; their
+// (M x M) compare-and-count one binary search per output slot; their
+// one-hot-matmul gather a direct load. Only the CDF is kept, in shared
+// memory; p, the mixture and its log are recomputed from lw + ll.
+//
+// Design of B5 (M > 1024): each batch row is split over a thread-block
+// cluster of C <= 8 blocks (C chosen by the caller from M), each block
+// owning one contiguous slice of S = ceil(M / C) slots (rounded up to 32),
+// and runs pf_tail.cuh's cluster row tail. A block reads its slice of
+// lw + ll, u and the particles from device memory once, each thread holding
+// its (up to 8) slots in registers, scans the slice into its shared memory
+// and pushes its partials into every block's. After one cluster barrier it
+// pushes its slice's scan to every peer with one bulk copy each
+// (cp.async.bulk into the peer's shared memory, counted in bytes on the
+// peer's mbarrier) while warp 0 merges the partials in rank order, so all
+// blocks hold the same CDF offsets; it then searches the whole row in its
+// own shared memory for its own slots (the first level of the search over
+// the offsets, the second inside the owning slice) and gathers the drawn
+// particles from device memory, writing its outputs coalesced. Measured on
+// the H100 against the alternatives: DSMEM loads, one request a slot or 16
+// bytes a thread, and copies through L2 each took 1.5-4x longer for the
+// row; drawing in the block that owns a target's CDF range scattered the
+// outputs. Slices of more than 8,192 slots, or rows of more than 55,000
+// floats in shared memory (M > ~52,000 at C = 6), take a strided kernel with
+// a two-level search over a device-memory scratch, so every M runs.
+// Cluster barriers: 1 after the partials and scans (every block needs all
+// of them), 1 in soft mode after the new weights' partials (their
+// normaliser), and a split one (arrive once a block has its peers' bytes,
+// wait before exit) so no block exits while its own bulk copies are in
+// flight.
 //
 // Bound. A row moves M * (3 + 2D + 1) * 4 bytes plus D * 4 (lw, ll, u and
 // particles in; particles and lw out; est out) and does a few tens of
 // operations per slot plus log2(M) for the search, so the card's memory
 // bounds it: 0.2 MB at N = 16, M = 300, D = 3, under 0.1 us at 3.35 TB/s;
-// 1.3 MB at N = 16, M = 2048, 0.4 us. At the main paths' shapes
-// launch latency sets the floor; the design answers with one launch per
-// filter step (normalise, estimate, scan, search, gather and reweight fused,
-// nothing but the CDF spilled) and batch rows in parallel blocks.
+// 10.5 MB at N = 16, M = 16,384, 3.1 us. At B1's and B4's shapes launch
+// latency sets the floor; the design answers with one launch per filter
+// step (normalise, estimate, scan, search, gather and reweight fused) and
+// batch rows in parallel blocks; B5 adds N C blocks and a single pass over
+// device memory.
 //
 // Entry points: plain C functions (built with nvcc into a shared library and
 // bound with ctypes). Each launches on the given stream, allocates nothing,
-// and returns cudaGetLastError() so the caller sees a refused launch.
+// and returns the launch's error (cudaGetLastError() for B1 and B4) so the
+// caller sees a refused launch.
 
 #include "pf_tail.cuh"
 
@@ -53,9 +75,15 @@ namespace {
 
 using namespace pf_tail;
 
-constexpr int kSmallMaxM = 1024;       // B1 and B4
-constexpr int kSharedCdfMaxM = 16384;  // CDF in shared memory up to here (64 KB)
+constexpr int kSmallMaxM = 1024;        // B1 and B4
 constexpr int kMaxThreads = 1024;
+// B5: blocks of at most 1,024 threads, each holding up to kMaxPer slots of
+// its slice in registers: slices of up to 8,192 slots, with the row's scans
+// in shared memory (C S floats up to 55,000, 215 KB); the strided kernel
+// above.
+constexpr int kClusterThreads = 1024;
+constexpr int kSharedRowMax = 55000;
+constexpr int kMaxPer = 8;
 
 template <bool kSoft>
 __global__ void pf_tail_kernel(const float* __restrict__ lw,
@@ -65,14 +93,12 @@ __global__ void pf_tail_kernel(const float* __restrict__ lw,
                                float* __restrict__ out_particles,
                                float* __restrict__ out_lw,
                                float* __restrict__ est,
-                               float* __restrict__ cdf_scratch,
                                int M, int D, float alpha, float uniform_part,
                                float neg_log_m) {
-  extern __shared__ float s_cdf[];
+  extern __shared__ float cdf[];
   __shared__ float red[32];
 
   const size_t row = static_cast<size_t>(blockIdx.x) * M;
-  float* cdf = cdf_scratch != nullptr ? cdf_scratch + row : s_cdf;
   const float* x_row = particles + row * D;
 
   const auto logit = [&](int m) { return lw[row + m] + ll[row + m]; };
@@ -120,25 +146,514 @@ __global__ void pf_tail_kernel(const float* __restrict__ lw,
 
 template <bool kSoft>
 int launch(const float* lw, const float* ll, const float* u, const float* particles,
-           float* out_particles, float* out_lw, float* est, float* cdf_scratch,
-           int N, int M, int D, float alpha, void* stream) {
+           float* out_particles, float* out_lw, float* est, int N, int M, int D,
+           float alpha, void* stream) {
   int threads = ((M + 31) / 32) * 32;
   threads = threads < 256 ? 256 : (threads > kMaxThreads ? kMaxThreads : threads);
-  size_t smem = 0;
-  if (cdf_scratch == nullptr) {
-    smem = static_cast<size_t>(M) * sizeof(float);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          pf_tail_kernel<kSoft>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-  }
+  const size_t smem = static_cast<size_t>(M) * sizeof(float);
   const float uniform_part = static_cast<float>((1.0 - static_cast<double>(alpha)) / M);
   const float neg_log_m = static_cast<float>(-log(static_cast<double>(M)));
   pf_tail_kernel<kSoft><<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lw, ll, u, particles, out_particles, out_lw, est, cdf_scratch, M, D, alpha,
-      uniform_part, neg_log_m);
+      lw, ll, u, particles, out_particles, out_lw, est, M, D, alpha, uniform_part,
+      neg_log_m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B5's importance reweight at a drawn slot (soft mode): the normalised
+// log-weight minus the mixture's log, before the row's log-normalise.
+__device__ __forceinline__ float soft_weight(float v, const ClusterRow& row, float log_sum,
+                                             float alpha, float uniform_part) {
+  return (v - row.max - log_sum) -
+         logf(mixture(expf(v - row.max) / row.sum, alpha, uniform_part));
+}
+
+// Soft mode: log-normalise the new weights over the row. Each block
+// publishes its slots' (max, sum of exp(w - max)); barrier 2; every block
+// merges them in rank order. Returns the shift to subtract, to all threads.
+__device__ float soft_shift(float new_max, float sum_part, SlicePartials* part2, float* shift,
+                            int C) {
+  if (threadIdx.x == 0) {
+    part2->max = new_max;
+    part2->total = sum_part;
+  }
+  cluster_sync();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const float m = lane < C ? peer(part2, lane)->max : -INFINITY;
+    const float t = lane < C ? peer(part2, lane)->total : 0.0f;
+    const float g = warp_max(m);
+    const float e = lane < C ? __fmul_rn(t, expf(m - g)) : 0.0f;
+    float sum = 0.0f;
+    for (int r = 0; r < C; ++r) sum = __fadd_rn(sum, __shfl_sync(kFull, e, r));
+    if (lane == 0) *shift = g + logf(sum);
+  }
+  __syncthreads();
+  return *shift;
+}
+
+// Bulk copies between the shared memories of a cluster (the async proxy),
+// with completion counted in bytes on an mbarrier.
+__device__ __forceinline__ unsigned cta_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of this block's shared address `a` in rank r.
+__device__ __forceinline__ unsigned cluster_addr(unsigned a, int r) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(a), "r"(r));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init_expect(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], 1;\n"
+      "fence.mbarrier_init.release.cluster;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) of this block's shared memory at `src`
+// to the shared::cluster address `dst`, counted on the mbarrier `bar`
+// (a shared::cluster address in the destination block).
+__device__ __forceinline__ void bulk_push(unsigned dst, unsigned src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared-memory position of row slot g in B5's row buffer: the low five
+// bits XOR-folded with higher ones, so a warp's binary searches, whose
+// probes share their low bits (j 2^a - 1), spread over the 32 banks.
+__device__ __forceinline__ int swizzle(int g) { return g ^ (((g >> 5) ^ (g >> 10)) & 31); }
+
+// B5: one cluster of C blocks per batch row; block r owns the slots
+// [min(r S, M), min((r + 1) S, M)) (S a multiple of 32), kPer of them a
+// thread (slot k blockDim + threadIdx), held in registers from one batch of
+// loads. Each block scans its slice into its place in its shared copy of
+// the row, pushes its partials to every block, and after barrier 1 pushes
+// its slice to every peer with a bulk copy; then it searches the whole row
+// for its own slots, forming each probe's CDF entry from its slice's scan,
+// offset and scale.
+template <bool kSoft, int kPer>
+__global__ void __launch_bounds__(kClusterThreads)
+pf_cluster_tail_kernel(const float* __restrict__ lw, const float* __restrict__ ll,
+                       const float* __restrict__ u, const float* __restrict__ particles,
+                       float* __restrict__ out_particles, float* __restrict__ out_lw,
+                       float* __restrict__ est, int M, int D, int S, float alpha,
+                       float uniform_part, float neg_log_m) {
+  extern __shared__ float4 s_dyn4[];
+  __shared__ float red[32 * kMaxD];
+  __shared__ SlicePartials parts[kMaxCluster];   // every slice's partials
+  __shared__ SlicePartials parts2[kMaxCluster];  // soft: the new weights' max and sum
+  __shared__ ClusterRow merged;
+  __shared__ alignas(8) unsigned long long row_bar;  // the peers' slices have landed
+
+  const int C = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int n = static_cast<int>(blockIdx.x) / C;
+  const size_t row = static_cast<size_t>(n) * M;
+  const int start = min(rank * S, M);
+  const int count = min(start + S, M) - start;
+  const size_t base = row + start;
+  const int T = blockDim.x, tid = threadIdx.x;
+  // The row's scans (C S floats), slot g at swizzle(g): S is a multiple of
+  // 32 and the swizzle permutes aligned groups of 32, so every slice is a
+  // contiguous, self-contained range that its owner pushes as it stands.
+  float* s_row = reinterpret_cast<float*>(s_dyn4);
+  const auto copy_bytes = [&](int r) {  // slice r's bulk copy, whole groups of 32
+    const int r_start = r * S, r_count = min(r_start + S, M) - r_start;
+    return static_cast<unsigned>((r_count + 31) / 32 * 32 * sizeof(float));
+  };
+  if (tid == 0) {
+    unsigned incoming = 0;
+    for (int r = 0; r < C; ++r)
+      if (r != rank) incoming += copy_bytes(r);
+    mbar_init_expect(cta_addr(&row_bar), incoming);
+  }
+
+  // a. Every load of the thread's slots at once; the estimate's partial
+  // sums against the thread's own max, rescaled to the block's below.
+  float v[kPer], target[kPer];
+  float tmax = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = k * T + tid;
+    v[k] = i < count ? lw[base + i] + ll[base + i] : -INFINITY;
+    target[k] = i < count ? u[base + i] : 0.0f;
+    tmax = fmaxf(tmax, v[k]);
+  }
+  float acc[kMaxD];
+#pragma unroll
+  for (int d = 0; d < kMaxD; ++d) acc[d] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = k * T + tid;
+    if (i < count) {
+      const float e = expf(v[k] - tmax);
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d)
+        if (d < D) acc[d] += e * particles[(base + i) * D + d];
+    }
+  }
+  const float mx = block_max(tmax, red);
+  const float rescale = tid < count ? expf(tmax - mx) : 0.0f;
+#pragma unroll
+  for (int d = 0; d < kMaxD; ++d) acc[d] *= rescale;
+  // The slice's inclusive scan of exp(logit - max), in slot order.
+  float carry = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = k * T + tid;
+    float tile;
+    const float c = block_inclusive_scan(i < count ? expf(v[k] - mx) : 0.0f, red, &tile);
+    if (i < count) s_row[swizzle(start + i)] = carry + c;
+    carry += tile;
+  }
+  block_sums(acc, D, red);  // its barriers also publish the scan
+  if (tid == 0) {
+    SlicePartials p;
+    p.max = mx;
+    p.total = s_row[swizzle(start + count - 1)];
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) p.est[d] = acc[d];
+    for (int r = 0; r < C; ++r) peer(parts, r)[rank] = p;
+  }
+
+  // b-c. Barrier 1: every slice's scan and partials are in place, and
+  // every block's mbarrier is set up. One thread of each block pushes its
+  // slice to every peer with one bulk copy each, while warp 0 merges the
+  // partials in rank order; then the block waits for its peers' bytes.
+  cluster_sync();
+  if (tid == 0) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const unsigned src = cta_addr(s_row + start), bytes = copy_bytes(rank);
+    for (int r = 0; r < C; ++r)
+      if (r != rank)
+        bulk_push(cluster_addr(src, r), src, bytes, cluster_addr(cta_addr(&row_bar), r));
+  }
+  if (tid < 32) {
+    merge_partials([&](int r) { return &parts[r]; }, C, S, M, D, alpha, uniform_part,
+                   &merged);
+  }
+  mbar_wait(cta_addr(&row_bar), 0);
+  __syncthreads();
+  // This block has received its peers' slices: arrive at the barrier that
+  // keeps every block resident until its own pushes have landed, and wait
+  // for the others only where it must (before barrier 2, or at exit).
+  cluster_arrive();
+  if (rank == 0 && tid < D) est[n * D + tid] = merged.est[tid];
+
+  // d. The thread's searches at once: the slice whose CDF range holds the
+  // target (a count over the offsets), then #(cdf < target) inside it by
+  // binary lifting, each probe's CDF entry formed from the slice's scan as
+  // cluster_cdf forms it (in multinomial mode without its zero last term).
+  float offsets[kMaxCluster];
+#pragma unroll
+  for (int r = 1; r < kMaxCluster; ++r) offsets[r] = r < C ? merged.offset[r] : INFINITY;
+  int lo[kPer], first_slot[kPer], hi[kPer];
+  float off[kPer], scl[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (kSoft) target[k] *= merged.offset[C];
+    int r = 0;
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q) r += offsets[q] < target[k];
+    first_slot[k] = lo[k] = r * S;
+    hi[k] = min(lo[k] + S, M);
+    off[k] = merged.offset[r];
+    scl[k] = merged.scale[r];
+  }
+  for (int step = 1 << (31 - __clz(S)); step > 0; step >>= 1) {
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int g = lo[k] + step - 1;
+      if (g < hi[k]) {
+        const float raw_scan = s_row[swizzle(g)];
+        const float cdf =
+            kSoft ? cluster_cdf(off[k], scl[k], raw_scan, g - first_slot[k], uniform_part)
+                  : __fadd_rn(off[k], __fmul_rn(scl[k], raw_scan));
+        if (cdf < target[k]) lo[k] += step;
+      }
+    }
+  }
+
+  // e. Gather (every load of the thread's draws in flight at once), and
+  // the new weights.
+  const float log_sum = logf(merged.sum);
+  float w[kPer];
+  float new_max = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = k * T + tid;
+    if (i >= count) continue;
+    const size_t src = row + min(lo[k], M - 1);
+    float x[kMaxD];
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d) x[d] = d < D ? particles[src * D + d] : 0.0f;
+    float vsrc = 0.0f;
+    if (kSoft) vsrc = lw[src] + ll[src];
+#pragma unroll
+    for (int d = 0; d < kMaxD; ++d)
+      if (d < D) out_particles[(base + i) * D + d] = x[d];
+    if (kSoft) {
+      w[k] = soft_weight(vsrc, merged, log_sum, alpha, uniform_part);
+      new_max = fmaxf(new_max, w[k]);
+    } else {
+      out_lw[base + i] = neg_log_m;
+    }
+  }
+  if (kSoft) {
+    // Log-normalise the new weights over the row: each block pushes its
+    // slots' (max, sum of exp(w - max)); barrier 2; a merge in rank order.
+    new_max = block_max(new_max, red);
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      if (k * T + tid < count) s += expf(w[k] - new_max);
+    s = block_sum(s, red);
+    cluster_wait();  // the split barrier: every block has its peers' slices
+    if (tid == 0) {
+      for (int r = 0; r < C; ++r) {
+        peer(parts2, r)[rank].max = new_max;
+        peer(parts2, r)[rank].total = s;
+      }
+    }
+    cluster_sync();
+    float g = -INFINITY, sum = 0.0f;
+    for (int r = 0; r < C; ++r) g = fmaxf(g, parts2[r].max);
+    for (int r = 0; r < C; ++r)
+      sum = __fadd_rn(sum, __fmul_rn(parts2[r].total, expf(parts2[r].max - g)));
+    const float shift = g + logf(sum);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = k * T + tid;
+      if (i < count) out_lw[base + i] = w[k] - shift;
+    }
+  } else {
+    // Stay resident until every block has its peers' slices: the bulk
+    // copies read this block's shared memory until they land.
+    cluster_wait();
+  }
+}
+
+// B5 for rows too long for shared memory: the same steps with the slice's
+// scan in `scratch` (N x M floats), the logits read again from lw + ll, the
+// slots strided over the threads, and a two-level search over the scratch.
+template <bool kSoft>
+__global__ void __launch_bounds__(512)
+pf_cluster_tail_scratch_kernel(const float* __restrict__ lw, const float* __restrict__ ll,
+                               const float* __restrict__ u,
+                               const float* __restrict__ particles,
+                               float* __restrict__ out_particles, float* __restrict__ out_lw,
+                               float* __restrict__ est, float* __restrict__ scratch, int M,
+                               int D, int S, float alpha, float uniform_part,
+                               float neg_log_m) {
+  __shared__ float red[32 * kMaxD];
+  __shared__ SlicePartials part;
+  __shared__ SlicePartials part2;
+  __shared__ ClusterRow merged;
+  __shared__ float shift;
+
+  const int C = static_cast<int>(cg::this_cluster().num_blocks());
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int n = static_cast<int>(blockIdx.x) / C;
+  const size_t row = static_cast<size_t>(n) * M;
+  const int start = min(rank * S, M);
+  const int count = min(start + S, M) - start;
+  const size_t base = row + start;
+  float* scan_row = scratch + row;
+  float* scan = scan_row + start;
+  const auto logit = [&](int i) { return lw[base + i] + ll[base + i]; };
+
+  float mx = -INFINITY;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) mx = fmaxf(mx, logit(i));
+  mx = block_max(mx, red);
+  float acc[kMaxD];
+#pragma unroll
+  for (int d = 0; d < kMaxD; ++d) acc[d] = 0.0f;
+  float carry = 0.0f;
+  for (int b = 0; b < count; b += blockDim.x) {
+    const int i = b + threadIdx.x;
+    const float e = i < count ? expf(logit(i) - mx) : 0.0f;
+    float tile;
+    const float c = block_inclusive_scan(e, red, &tile);
+    if (i < count) {
+      scan[i] = carry + c;
+#pragma unroll
+      for (int d = 0; d < kMaxD; ++d)
+        if (d < D) acc[d] += e * particles[(base + i) * D + d];
+    }
+    carry += tile;
+  }
+  block_sums(acc, D, red);  // its barriers also publish scan
+  if (threadIdx.x == 0) {
+    part.max = mx;
+    part.total = scan[count - 1];
+    for (int d = 0; d < D; ++d) part.est[d] = acc[d];
+  }
+
+  cluster_sync();
+  if (threadIdx.x < 32) {
+    merge_partials([&](int r) { return peer(&part, r); }, C, S, M, D, alpha,
+                   uniform_part, &merged);
+  }
+  __syncthreads();
+  if (rank == 0 && threadIdx.x < D) est[n * D + threadIdx.x] = merged.est[threadIdx.x];
+
+  const auto scan_of = [&](int r) -> const float* { return scan_row + merged.start[r]; };
+  const float target_scale = kSoft ? merged.offset[C] : 1.0f;
+  const float log_sum = logf(merged.sum);
+  float new_max = -INFINITY;
+  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    const Draw draw = cluster_lower_bound(merged, C, scan_of, uniform_part,
+                                          u[base + j] * target_scale);
+    const size_t src = row + merged.start[draw.rank] + draw.local;
+    for (int d = 0; d < D; ++d) out_particles[(base + j) * D + d] = particles[src * D + d];
+    if (kSoft) {
+      const float w = soft_weight(lw[src] + ll[src], merged, log_sum, alpha, uniform_part);
+      out_lw[base + j] = w;
+      new_max = fmaxf(new_max, w);
+    } else {
+      out_lw[base + j] = neg_log_m;
+    }
+  }
+  if (kSoft) {
+    // Each thread reads back only the slots it wrote.
+    new_max = block_max(new_max, red);
+    float s = 0.0f;
+    for (int j = threadIdx.x; j < count; j += blockDim.x) s += expf(out_lw[base + j] - new_max);
+    const float sh = soft_shift(new_max, block_sum(s, red), &part2, &shift, C);
+    for (int j = threadIdx.x; j < count; j += blockDim.x) out_lw[base + j] -= sh;
+  }
+  cluster_sync();
+}
+
+// B5's launch for rows of M in clusters of C: which kernel, its block and
+// its shared memory.
+struct ClusterLaunch {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attribute;
+  int S;
+  int per;  // slots a thread (shared-memory kernel), 0 for the scratch kernel
+};
+
+// B5's slice: ceil(M / C) rounded up to a multiple of 32 (the swizzle
+// keeps each slice to itself, and bulk copies are whole 16-byte units).
+int slice_of(int M, int C) { return ((M + C - 1) / C + 31) / 32 * 32; }
+
+// The register kernel takes slices of up to kMaxPer * kClusterThreads
+// slots; longer ones go to the strided kernel.
+bool strided(int M, int C) {
+  const int S = slice_of(M, C);
+  return S > kMaxPer * kClusterThreads || C * S > kSharedRowMax;
+}
+
+template <bool kSoft, int kPer>
+void* shared_kernel_for() {
+  return reinterpret_cast<void*>(pf_cluster_tail_kernel<kSoft, kPer>);
+}
+
+template <bool kSoft>
+void* kernel_for(int per) {
+  switch (per) {
+    case 0: return reinterpret_cast<void*>(pf_cluster_tail_scratch_kernel<kSoft>);
+    case 1: return shared_kernel_for<kSoft, 1>();
+    case 2: return shared_kernel_for<kSoft, 2>();
+    case 3: return shared_kernel_for<kSoft, 3>();
+    case 4: return shared_kernel_for<kSoft, 4>();
+    case 6: return shared_kernel_for<kSoft, 6>();
+    default: return shared_kernel_for<kSoft, 8>();
+  }
+}
+
+int cluster_config(int N, int M, int C, bool soft, void* stream, ClusterLaunch* out) {
+  const int S = slice_of(M, C);
+  if ((C - 1) * S >= M) return static_cast<int>(cudaErrorInvalidValue);  // an empty slice
+  int per = 0, threads = 512;  // the strided kernel: 512 threads
+  size_t smem = 0;
+  if (!strided(M, C)) {
+    // Slots a thread: the fewest of 1, 2, 3, 4, 6 and 8 that cover the slice.
+    constexpr int kPers[] = {1, 2, 3, 4, 6, 8};
+    for (const int p : kPers) {
+      per = p;
+      if (p * kClusterThreads >= S) break;
+    }
+    threads = ((S + per - 1) / per + 31) / 32 * 32;
+    threads = threads < 64 ? 64 : threads;
+    smem = static_cast<size_t>(C) * S * sizeof(float);  // the row's scans
+  }
+  void* kernel = soft ? kernel_for<true>(per) : kernel_for<false>(per);
+  // Always: with its static shared memory a block may pass 48 KB already.
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out->S = S;
+  out->per = per;
+  out->config = cudaLaunchConfig_t{};
+  out->config.gridDim = dim3(static_cast<unsigned>(N * C));
+  out->config.blockDim = dim3(static_cast<unsigned>(threads));
+  out->config.dynamicSmemBytes = smem;
+  out->config.stream = static_cast<cudaStream_t>(stream);
+  out->attribute.id = cudaLaunchAttributeClusterDimension;
+  out->attribute.val.clusterDim.x = static_cast<unsigned>(C);
+  out->attribute.val.clusterDim.y = 1;
+  out->attribute.val.clusterDim.z = 1;
+  out->config.attrs = &out->attribute;
+  out->config.numAttrs = 1;
+  return 0;
+}
+
+template <bool kSoft>
+int launch_cluster(const float* lw, const float* ll, const float* u,
+                   const float* particles, float* out_particles, float* out_lw, float* est,
+                   float* scratch, int N, int M, int D, int C, float alpha,
+                   void* stream) {
+  ClusterLaunch cl;
+  const int rc = cluster_config(N, M, C, kSoft, stream, &cl);
+  if (rc != 0) return rc;
+  const float uniform_part =
+      kSoft ? static_cast<float>((1.0 - static_cast<double>(alpha)) / M) : 0.0f;
+  const float neg_log_m = static_cast<float>(-log(static_cast<double>(M)));
+  alpha = kSoft ? alpha : 1.0f;
+  cudaError_t err;
+  switch (cl.per) {
+    case 0:
+      err = cudaLaunchKernelEx(&cl.config, pf_cluster_tail_scratch_kernel<kSoft>, lw, ll, u,
+                               particles, out_particles, out_lw, est, scratch, M, D, cl.S,
+                               alpha, uniform_part, neg_log_m);
+      break;
+#define B5_LAUNCH(P)                                                                       \
+  case P:                                                                                  \
+    err = cudaLaunchKernelEx(&cl.config, pf_cluster_tail_kernel<kSoft, P>, lw, ll, u,      \
+                             particles, out_particles, out_lw, est, M, D, cl.S, alpha,     \
+                             uniform_part, neg_log_m);                                     \
+    break;
+      B5_LAUNCH(1)
+      B5_LAUNCH(2)
+      B5_LAUNCH(3)
+      B5_LAUNCH(4)
+      B5_LAUNCH(6)
+      B5_LAUNCH(8)
+#undef B5_LAUNCH
+    default:
+      err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,8 +668,8 @@ extern "C" int pf_update_and_resample_f32(const float* lw, const float* ll,
                                           float* est, int N, int M, int D,
                                           void* stream) {
   if (bad_shape(N, M, D) || M > kSmallMaxM) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<false>(lw, ll, u, particles, out_particles, out_lw, est, nullptr, N, M,
-                       D, 1.0f, stream);
+  return launch<false>(lw, ll, u, particles, out_particles, out_lw, est, N, M, D, 1.0f,
+                       stream);
 }
 
 // B4: soft resampling (alpha < 1), M <= 1024.
@@ -165,24 +680,44 @@ extern "C" int pf_soft_resample_f32(const float* lw, const float* ll, const floa
   if (bad_shape(N, M, D) || M > kSmallMaxM || !(alpha < 1.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch<true>(lw, ll, u, particles, out_particles, out_lw, est, nullptr, N, M, D,
-                      alpha, stream);
+  return launch<true>(lw, ll, u, particles, out_particles, out_lw, est, N, M, D, alpha,
+                      stream);
 }
 
-// B5: any M, soft when alpha < 1. Above M = 16,384 the CDF lives in
-// `cdf_scratch` (N * M floats, allocated by the caller); at or below it the
-// scratch must be null.
+// B5: any M, soft when alpha < 1, in clusters of `cluster` blocks a row
+// (the slice S = ceil(M / cluster) rounded up to a multiple of 32). Rows
+// that take the strided kernel (slices of more than 8,192 slots, or C S >
+// 55,000) keep their scans in `scratch` (N * M floats, allocated by the
+// caller); otherwise the scratch must be null. A cluster size the card
+// cannot schedule is refused by the launch, whose error is returned.
 extern "C" int pf_resample_large_f32(const float* lw, const float* ll, const float* u,
                                      const float* particles, float* out_particles,
-                                     float* out_lw, float* est, float* cdf_scratch,
-                                     int N, int M, int D, float alpha, void* stream) {
-  if (bad_shape(N, M, D) || ((M > kSharedCdfMaxM) != (cdf_scratch != nullptr))) {
+                                     float* out_lw, float* est, float* scratch, int N,
+                                     int M, int D, int cluster, float alpha, void* stream) {
+  if (bad_shape(N, M, D) || cluster < 1 || strided(M, cluster) != (scratch != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (alpha < 1.0f) {
-    return launch<true>(lw, ll, u, particles, out_particles, out_lw, est, cdf_scratch, N,
-                        M, D, alpha, stream);
+    return launch_cluster<true>(lw, ll, u, particles, out_particles, out_lw, est, scratch,
+                                N, M, D, cluster, alpha, stream);
   }
-  return launch<false>(lw, ll, u, particles, out_particles, out_lw, est, cdf_scratch, N, M,
-                       D, 1.0f, stream);
+  return launch_cluster<false>(lw, ll, u, particles, out_particles, out_lw, est, scratch,
+                               N, M, D, cluster, 1.0f, stream);
+}
+
+// What pf_resample_large_f32 launches for N rows of M in clusters of
+// `cluster`: the blocks in all, whether the rows take the strided kernel
+// (and so need the scratch), and, unless `max_clusters` is null, how many
+// such clusters the card holds at once (cudaOccupancyMaxActiveClusters).
+extern "C" int pf_resample_large_plan(int N, int M, int cluster, int soft, int* blocks,
+                                      int* strided_rows, int* max_clusters) {
+  if (N < 1 || M < 1 || cluster < 1) return static_cast<int>(cudaErrorInvalidValue);
+  ClusterLaunch cl;
+  const int rc = cluster_config(N, M, cluster, soft != 0, nullptr, &cl);
+  if (rc != 0) return rc;
+  *blocks = static_cast<int>(cl.config.gridDim.x);
+  *strided_rows = cl.per == 0 ? 1 : 0;
+  if (max_clusters == nullptr) return 0;
+  void* kernel = soft ? kernel_for<true>(cl.per) : kernel_for<false>(cl.per);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cl.config));
 }

@@ -20,8 +20,11 @@ per-step path, with the reason in ``packing_report()`` and one warning.
 ``fused_forward`` runs the plain version ``fused_forward_reference`` (the
 same recursion in torch ops, the tail through
 ``pf_update_and_resample_reference``) on CPU tensors, and on CUDA tensors
-launches ``csrc/pf_fused_step.cu`` or raises. ``fused_forward_kernel.launches``
-counts the kernel's launches.
+launches ``csrc/pf_fused_step.cu`` or raises. The kernel runs each
+trajectory on a thread-block cluster of ``cluster_size(M)`` blocks, one per
+64-particle tile; ``launch_plan`` reports what the C entry launches, and a
+cluster the card refuses raises. ``fused_forward_kernel.launches`` counts
+the kernel's launches.
 
 Supported, as in JAX: eval, multinomial resampling (alpha >= 1), units=64
 ``DynamicsNet`` and ``LogLikelihoodNet`` trunks (under a
@@ -35,7 +38,7 @@ import ctypes
 import dataclasses
 import functools
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,7 +47,8 @@ from ._build import load_library
 from .pf_kernels import pf_update_and_resample_reference
 
 UNITS = 64
-FUSED_M_MAX = 512
+TILE = 64  # particles per block of a trajectory's cluster
+FUSED_M_MAX = 512  # 8 tiles: the portable cluster size
 MAX_K = 4
 MAX_D = 8
 DYN_LAYERS = 11
@@ -285,13 +289,45 @@ def fused_forward_reference(ops: FusedOperands, belief, uniforms, record=None):
     return ParticleBelief(particles, log_weights), torch.stack(estimates)
 
 
+def cluster_size(m: int) -> int:
+    """Blocks in each trajectory's cluster: one per 64-particle tile."""
+    return -(-m // TILE)
+
+
+class LaunchPlan(NamedTuple):
+    """What B3's C entry launches for N trajectories of M particles:
+    ``cluster`` blocks a trajectory, ``blocks`` in all, and how many such
+    clusters the card holds at once (``cudaOccupancyMaxActiveClusters``; a
+    launch over more trajectories runs the rest in a later wave)."""
+
+    cluster: int
+    blocks: int
+    max_active_clusters: int
+
+
 @functools.cache
+def _library():
+    lib = load_library("pf_fused_step")
+    ptr, i32, out = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.pf_fused_forward_f32.argtypes = [ptr] * 14 + [i32] * 5 + [ptr]
+    lib.pf_fused_forward_plan.argtypes = [i32, i32, out, out, out]
+    for fn in (lib.pf_fused_forward_f32, lib.pf_fused_forward_plan):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _kernel():
-    fn = load_library("pf_fused_step").pf_fused_forward_f32
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 14 + [i32] * 5 + [ptr]
-    fn.restype = ctypes.c_int
-    return fn
+    return _library().pf_fused_forward_f32
+
+
+def launch_plan(n: int, m: int) -> LaunchPlan:
+    """B3's launch for N trajectories of M, as the C entry sets it up.
+    Needs the card."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    rc = _library().pf_fused_forward_plan(n, m, *map(ctypes.byref, vals))
+    if rc != 0:
+        raise RuntimeError(f"B3 launch plan failed: cudaError {rc}")
+    return LaunchPlan(*(v.value for v in vals))
 
 
 def _check_cuda_inputs(ops: FusedOperands, particles, log_weights, uniforms):
@@ -307,6 +343,9 @@ def _check_cuda_inputs(ops: FusedOperands, particles, log_weights, uniforms):
             raise ValueError(f"B3 kernel takes float32, got {x.dtype} for {name}")
         if not x.is_contiguous():
             raise ValueError(f"B3 kernel takes contiguous tensors ({name})")
+    for name in ("wdt", "wmt"):  # copied 16 bytes at a time
+        if named[name].data_ptr() % 16:
+            raise ValueError(f"B3 kernel takes 16-byte aligned {name}")
     if particles.ndim != 3 or uniforms.ndim != 3:
         raise ValueError("particles must be (N, M, D) and uniforms (T, N, M)")
     n, m, d = particles.shape

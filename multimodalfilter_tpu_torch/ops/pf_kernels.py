@@ -14,7 +14,9 @@ raises:
   B1 (``_pf_kernel``)          multinomial, M <= SMALL_M_MAX
   B4 (``_pf_soft_kernel``)     soft, M <= SMALL_M_MAX
   B5 (``_pf_kernel_chunked``)  either, M > SMALL_M_MAX (every M; the TPU's
-                               kernel stops at 16,384)
+                               kernel stops at 16,384), each row split over
+                               a thread-block cluster of
+                               ``b5_cluster_size(M)`` blocks
 
 Like the TPU kernels and unlike ``ops/resampling.py``, neither side divides
 the CDF by its last entry: multinomial compares ``cdf < u``, soft
@@ -29,14 +31,34 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from ._build import load_library
 
 SMALL_M_MAX = 1024  # B1 and B4 up to here, B5 above
-SHARED_CDF_M_MAX = 16384  # B5 keeps the CDF in shared memory up to here
 MAX_D = 8
+
+
+def b5_cluster_size(m: int) -> int:
+    """B5's blocks per row at M particles: 4 below 8,192, 6 from there on,
+    the fastest of 2-8 on the H100 at M = 2,048 and 16,384 with N = 16
+    rows (PERF.md; other N were not measured). Clusters of 7 and 8 fit
+    only 15 at once there, so N = 16 would need a second wave."""
+    return 4 if m < 8192 else 6
+
+
+class B5Launch(NamedTuple):
+    """What B5's C entry launches for N rows of M: ``cluster`` blocks a
+    row, ``blocks`` in all, whether the rows take the strided kernel (its
+    scans in a device-memory scratch), and how many such clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+
+    cluster: int
+    blocks: int
+    strided: bool
+    max_active_clusters: int
 
 
 def resample_cdf(log_weights, log_liks, alpha: float = 1.0):
@@ -143,10 +165,33 @@ def _kernels():
     b4 = lib.pf_soft_resample_f32
     b4.argtypes = [ptr] * 7 + [i32, i32, i32, f32, ptr]
     b5 = lib.pf_resample_large_f32
-    b5.argtypes = [ptr] * 8 + [i32, i32, i32, f32, ptr]
-    for fn in (b1, b4, b5):
+    b5.argtypes = [ptr] * 8 + [i32] * 4 + [f32, ptr]
+    b5_plan = lib.pf_resample_large_plan
+    b5_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 3
+    for fn in (b1, b4, b5, b5_plan):
         fn.restype = ctypes.c_int
-    return {"b1": b1, "b4": b4, "b5": b5}
+    return {"b1": b1, "b4": b4, "b5": b5, "b5_plan": b5_plan}
+
+
+def _b5_plan(n: int, m: int, cluster: int, soft: bool, occupancy: bool):
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    refs = [ctypes.byref(v) for v in vals]
+    rc = _kernels()["b5_plan"](n, m, cluster, int(soft), *refs[:2],
+                               refs[2] if occupancy else None)
+    if rc != 0:
+        raise RuntimeError(f"B5 launch plan failed: cudaError {rc}")
+    return B5Launch(cluster, vals[0].value, bool(vals[1].value), vals[2].value)
+
+
+def b5_launch(n: int, m: int, alpha: float = 1.0) -> B5Launch:
+    """B5's launch for N rows of M, as the C entry sets it up. Needs the
+    card."""
+    return _b5_plan(n, m, b5_cluster_size(m), alpha < 1.0, occupancy=True)
+
+
+@functools.cache
+def _b5_strided(m: int, cluster: int) -> bool:
+    return _b5_plan(1, m, cluster, False, occupancy=False).strided
 
 
 def _check_cuda_inputs(log_weights, log_liks, particles, uniforms):
@@ -173,7 +218,7 @@ def _check_cuda_inputs(log_weights, log_liks, particles, uniforms):
                          f"got {(n, m, d)}")
 
 
-def _launch(name, args, *extra):
+def _launch(name, args, *extra, cluster: int = 0):
     log_weights, log_liks, particles, uniforms = args
     n, m, d = particles.shape
     out = torch.empty_like(particles)
@@ -181,15 +226,17 @@ def _launch(name, args, *extra):
     est = torch.empty((n, d), dtype=particles.dtype, device=particles.device)
     pointers = [log_weights.data_ptr(), log_liks.data_ptr(), uniforms.data_ptr(),
                 particles.data_ptr(), out.data_ptr(), out_lw.data_ptr(), est.data_ptr()]
-    scratch = None
-    if name == "b5":
-        # Above SHARED_CDF_M_MAX the kernel keeps each row's CDF here.
-        if m > SHARED_CDF_M_MAX:
+    sizes = [n, m, d]
+    if cluster:
+        # Rows that take B5's strided kernel keep their scans here.
+        scratch = None
+        if _b5_strided(m, cluster):
             scratch = torch.empty((n, m), dtype=torch.float32, device=particles.device)
         pointers.append(None if scratch is None else scratch.data_ptr())
+        sizes.append(cluster)
     with torch.cuda.device(particles.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernels()[name](*pointers, n, m, d, *extra, stream)
+        rc = _kernels()[name](*pointers, *sizes, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name.upper()} kernel launch failed: cudaError {rc}")
     return out, out_lw, est
@@ -210,10 +257,18 @@ def launch_b4(*args, alpha: float):
 
 
 def launch_b5(*args, alpha: float):
-    """B5 on CUDA tensors: either mode, any M (the tail above SMALL_M_MAX)."""
-    out = _launch("b5", args, alpha)
+    """B5 on CUDA tensors: either mode, any M (the tail above SMALL_M_MAX),
+    in clusters of ``b5_cluster_size(M)`` blocks a row. A cluster the card
+    refuses raises."""
+    out = _launch_b5_in_clusters(args, alpha, b5_cluster_size(args[2].shape[1]))
     launch_b5.launches += 1
     return out
+
+
+def _launch_b5_in_clusters(args, alpha: float, cluster: int):
+    """B5 in clusters of ``cluster`` blocks a row, uncounted: for the
+    refused-cluster test and ``cluster_sweep.py``."""
+    return _launch("b5", args, alpha, cluster=cluster)
 
 
 launch_b1.launches = launch_b4.launches = launch_b5.launches = 0

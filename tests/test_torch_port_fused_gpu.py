@@ -1,8 +1,10 @@
 """The port's remaining eval kernels on the card: B4 (soft resampling) and
-B5 (large M) against their plain version, B3 (the whole eval loop) against
-``fused_forward_reference``, and the serving route through
-``StatefulFilter`` with ``MMF_TPU_FUSED_STEP=1``. Marked ``gpu``; each test
-skips (inside a fixture) when no CUDA card is present.
+B5 (large M, each row split over a thread-block cluster) against their
+plain version, B3 (the whole eval loop, a cluster per trajectory) against
+``fused_forward_reference`` at the edges of its clusters, a cluster launch
+the card refuses, and the serving route through ``StatefulFilter`` with
+``MMF_TPU_FUSED_STEP=1``. Marked ``gpu``; each test skips (inside a
+fixture) when no CUDA card is present.
 
 This file imports only torch and the port, so it also runs on a machine
 without JAX: ``python -m pytest --noconftest -p no:cacheprovider
@@ -32,6 +34,9 @@ LW_ATOL = 2e-5
 # relative to its scale where that exceeds 1.
 LL_RTOL = 1e-4
 PARTICLE_ATOL = 1e-4
+# A whole B3 loop against the plain run, through each trajectory's steps
+# before its draws first diverge: rounding carried through the belief.
+LOOP_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -55,6 +60,10 @@ def _tail_inputs(n, m, d, device, seed=0):
     (16, 300, 3, 0.9, "launch_b4"), (16, 1, 2, 0.9, "launch_b4"),
     (16, 1025, 3, 1.0, "launch_b5"), (16, 2048, 3, 0.5, "launch_b5"),
     (4, 16384, 3, 1.0, "launch_b5"), (2, 20000, 3, 0.5, "launch_b5"),
+    (16, 1025, 3, 0.5, "launch_b5"), (16, 2048, 3, 1.0, "launch_b5"),
+    (4, 16384, 3, 0.5, "launch_b5"), (2, 20000, 3, 1.0, "launch_b5"),
+    (3, 4099, 8, 0.7, "launch_b5"),  # D = 8, a cluster of 3
+    (2, 60000, 3, 1.0, "launch_b5"), (2, 60000, 3, 0.5, "launch_b5"),  # strided
 ])
 def test_b4_b5_match_plain_version(cuda, n, m, d, alpha, kernel):
     args = _tail_inputs(n, m, d, cuda, seed=m)
@@ -134,6 +143,96 @@ def test_b3_matches_plain_version_step_by_step(cuda, name, n, m, enabled):
             assert ((kb.particles - ep).abs().amax(-1)[ok] <= PARTICLE_ATOL * scale).all()
             belief = rb
     assert fused_step.fused_forward_kernel.launches == before + t
+
+
+@pytest.mark.gpu
+def test_b5_refused_cluster_raises_without_fallback(cuda):
+    """16 blocks a row exceed the portable cluster size, which the kernel
+    does not opt out of: the launch is refused and the wrapper raises,
+    counting no launch."""
+    args = _tail_inputs(2, 16384, 3, cuda)
+    before = pf_kernels.launch_b5.launches
+    with pytest.raises(RuntimeError, match="B5 kernel launch failed"):
+        pf_kernels._launch_b5_in_clusters(args, 1.0, 16)
+    assert pf_kernels.launch_b5.launches == before
+    out = pf_kernels.launch_b5(*args, alpha=1.0)  # the card still works
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[2]).all() and pf_kernels.launch_b5.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,alpha", [(1025, 1.0), (8192, 0.5), (16384, 1.0), (60000, 0.5)])
+def test_b5_launch_plan_matches_host_choice(cuda, m, alpha):
+    """The C entry launches b5_cluster_size(M) blocks a row, takes the
+    strided kernel only for rows too long for the cluster's shared memory,
+    and fits N = 16 rows in one wave."""
+    plan = pf_kernels.b5_launch(16, m, alpha)
+    assert plan.cluster == pf_kernels.b5_cluster_size(m)
+    assert plan.blocks == 16 * plan.cluster
+    assert plan.strided == (m == 60000)
+    assert plan.max_active_clusters >= 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 64, 65, 300, 512])
+def test_b3_launch_plan_matches_host_choice(cuda, m):
+    plan = fused_step.launch_plan(16, m)
+    assert plan.cluster == fused_step.cluster_size(m)
+    assert plan.blocks == 16 * plan.cluster and plan.max_active_clusters >= 1
+
+
+def _first_divergence(record, lls):
+    """Per trajectory, the first step whose draws from the kernel's
+    log-likelihoods differ from the plain run's, or hold a tie."""
+    first = torch.full((lls.shape[1],), len(record), dtype=torch.long, device=lls.device)
+    for t, (lw, ll, u, _) in enumerate(record):
+        _, cdf_a = pf_kernels.resample_cdf(lw, ll)
+        _, cdf_b = pf_kernels.resample_cdf(lw, lls[t])
+        bad = ((torch.searchsorted(cdf_a, u.contiguous())
+                != torch.searchsorted(cdf_b, u.contiguous())).any(1)
+               | (pf_kernels.draw_gaps(lw, lls[t], u) <= TIE).any(1))
+        first = torch.where(bad & (first == len(record)), t, first)
+    return first
+
+
+def _b3_whole_loop_matches(cuda, n, m, t):
+    model = tdoor.DoorCrossmodalParticleFilter(device=cuda, seed=0)
+    defn = dataclasses.replace(model.definition, num_particles_eval=m)
+    ops, belief, uniforms = _door_inputs(defn, t, n, m, cuda, seed=m)
+    with torch.no_grad():
+        record = []
+        _, rest = fused_step.fused_forward_reference(ops, belief, uniforms, record=record)
+        lls = torch.empty((t, n, m), device=cuda)
+        kb, kest = fused_step.fused_forward_kernel(ops, belief, uniforms, log_liks_out=lls)
+        torch.cuda.synchronize()
+    assert kb.particles.shape == (n, m, 3) and torch.isfinite(kest).all()
+    first = _first_divergence(record, lls)
+    mask = torch.arange(t, device=cuda)[:, None] < first[None, :]
+    assert mask.any()
+    ll_ref = torch.stack([r[1] for r in record])
+    assert ((lls - ll_ref).abs().amax(-1)[mask].max()
+            <= LL_RTOL * max(1.0, float(ll_ref.abs().amax(-1)[mask].max())))
+    assert ((kest - rest).abs().amax(-1)[mask].max()
+            <= LOOP_ATOL * max(1.0, float(rest.abs().amax(-1)[mask].max())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(1, 64), (16, 64), (16, 65), (1, 65), (1, 300), (16, 300),
+                                 (1, 512), (16, 512)])
+def test_b3_cluster_edges_match_plain_version(cuda, n, m):
+    """One block per 64-particle tile: M=64 (1 block), 65 (2, the second
+    holding one particle), 300 (5), 512 (8): a whole loop against the plain
+    run through the steps before its draws first diverge."""
+    assert fused_step.cluster_size(m) == -(-m // 64)
+    _b3_whole_loop_matches(cuda, n, m, t=6)
+
+
+@pytest.mark.gpu
+def test_b3_runs_more_trajectories_than_fit_at_once(cuda):
+    """More clusters than the card holds at once: the rest run in a later
+    wave, with the same results."""
+    n = fused_step.launch_plan(1, 300).max_active_clusters + 4
+    _b3_whole_loop_matches(cuda, n, 300, t=2)
 
 
 @pytest.mark.gpu
