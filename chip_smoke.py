@@ -25,11 +25,22 @@ B3 is also held against its plain version step by step (T=100 launches of
 one step, each from the plain run's belief), over a whole loop, and at other
 shapes, the edges of its thread-block clusters among them (one block per
 64-particle tile: M=64, 65, 300, 512; N=1 and 16; and an N whose clusters
-do not all fit the card at once); B4 and B5 at twelve shapes up to
-M=60,000 (B5 splits each row over a cluster of up to 8 blocks; rows of
-more than ~52,000 particles take its strided kernel). The times report
+do not all fit the card at once); B5 at twelve shapes up to M=60,000 (B5
+splits each row over a cluster of up to 8 blocks; rows of more than
+~52,000 particles take its strided kernel); B1 and B4 at the edges of their
+one-block-a-row kernel (ragged and whole warps, one and 512 rows, D=8 at
+M=1024, a row whose leading particle is 80 nats ahead). The times report
 each cluster kernel's cluster size, blocks and
-cudaOccupancyMaxActiveClusters, as its C entry reports them.
+cudaOccupancyMaxActiveClusters, as its C entry reports them; B1's and B4's
+device and host-paced times beside the floor (one copy kernel over the same
+particles) and the host cost of a call's parts.
+
+    python3 chip_smoke.py --yardstick DIR
+
+also times B1 and B4 against the wrapper and kernels of another checkout at
+DIR (an earlier commit unpacked with ``git archive``), in turns on the same
+card: device and host-paced times, a call's parts, and the per-step eval
+loop with each wrapper.
 
 TF32 is off for matmuls and cuDNN throughout, so fp32 means fp32.
 
@@ -55,18 +66,30 @@ SAT_N, SAT_M = 512, 100
 TIE = 1e-6  # a uniform this close to a CDF entry may pick a neighbour
 EST_ATOL_KERNEL = 1e-5  # B1 estimate, fp32 sums in another order
 LOOP_ATOL = 1e-4  # forward_loop estimates, GPU vs CPU fp32 nets
-B1_SHAPES = [(16, 300, 3), (16, 100, 3), (512, 100, 3),
-             (16, 1, 2), (16, 1000, 2), (16, 1024, 2)]
+# B1 against its plain version at these (N, M, D, lead): the main paths'
+# shapes, then the edges of the one-pass kernel (ragged and whole warps, 1,
+# 2 and 4 slots a thread, one row, D = 8 at M = 1024) and a row whose
+# particle M // 3 leads the rest by `lead` nats (its CDF flat past it).
+B1_SHAPES = [(16, 300, 3, 0.0), (16, 100, 3, 0.0), (512, 100, 3, 0.0),
+             (16, 1, 2, 0.0), (16, 1000, 2, 0.0), (16, 1024, 2, 0.0),
+             (16, 31, 3, 0.0), (16, 32, 3, 0.0), (16, 33, 3, 0.0), (16, 1023, 3, 0.0),
+             (1, 300, 3, 0.0), (16, 1024, 8, 0.0), (16, 300, 3, 80.0)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 
 # The remaining eval kernels. B4 and B5 against their plain version at these
-# (N, M, D, alpha); B4 takes M <= 1024 with alpha < 1, B5 every M > 1024.
-B45_SHAPES = [(16, 300, 3, 0.9), (16, 1, 2, 0.9), (16, 1025, 3, 1.0), (16, 1025, 3, 0.5),
-              (16, 2048, 3, 1.0), (16, 2048, 3, 0.5), (4, 16384, 3, 1.0),
-              (4, 16384, 3, 0.5), (2, 20000, 3, 1.0), (2, 20000, 3, 0.5),
-              (2, 60000, 3, 1.0), (2, 60000, 3, 0.5)]  # the last two: B5's strided kernel
+# (N, M, D, alpha, lead); B4 takes M <= 1024 with alpha < 1, B5 every M > 1024.
+B45_SHAPES = [(16, 300, 3, 0.9, 0.0), (16, 1, 2, 0.9, 0.0), (16, 1025, 3, 1.0, 0.0),
+              (16, 1025, 3, 0.5, 0.0), (16, 2048, 3, 1.0, 0.0), (16, 2048, 3, 0.5, 0.0),
+              (4, 16384, 3, 1.0, 0.0), (4, 16384, 3, 0.5, 0.0), (2, 20000, 3, 1.0, 0.0),
+              (2, 20000, 3, 0.5, 0.0),
+              (2, 60000, 3, 1.0, 0.0), (2, 60000, 3, 0.5, 0.0),  # B5's strided kernel
+              # B4's edges, as B1's above.
+              (16, 31, 3, 0.9, 0.0), (16, 32, 3, 0.9, 0.0), (16, 33, 3, 0.9, 0.0),
+              (16, 1023, 3, 0.5, 0.0), (1, 300, 3, 0.9, 0.0), (512, 100, 3, 0.9, 0.0),
+              (16, 1024, 8, 0.5, 0.0), (16, 300, 3, 0.9, 80.0)]
 SOFT_ALPHA = 0.9
+ROW_TAIL_KERNEL = "pf_row_tail_kernel"  # B1's and B4's kernel, by its name in a trace
 # Soft log-weights: values near -log M (to -9.9 at M = 20,000, where one fp32
 # ulp is ~1e-6), normalised by sums of M exponentials in another order.
 SOFT_LW_ATOL = 2e-5
@@ -193,12 +216,13 @@ def kernel_totals(kernels):
     return by_name, sum(v[1] for v in by_name.values())
 
 
-def b1_inputs(n, m, d, device, seed):
+def b1_inputs(n, m, d, device, seed, lead=0.0):
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
     lw = torch.log_softmax(torch.randn(n, m, generator=g, device=device), dim=1)
     ll = torch.randn(n, m, generator=g, device=device)
+    ll[0, m // 3] += lead
     particles = torch.randn(n, m, d, generator=g, device=device)
     uniforms = torch.rand(n, m, generator=g, device=device)
     return lw, ll, particles, uniforms
@@ -209,8 +233,8 @@ def phase_b1(pf_kernels, device) -> dict:
     import torch
 
     worst_est, results = 0.0, []
-    for i, (n, m, d) in enumerate(B1_SHAPES):
-        args = b1_inputs(n, m, d, device, seed=i)
+    for i, (n, m, d, lead) in enumerate(B1_SHAPES):
+        args = b1_inputs(n, m, d, device, seed=i, lead=lead)
         kp, klw, kest = pf_kernels.pf_update_and_resample(*args)
         torch.cuda.synchronize()
         rp, rlw, rest = pf_kernels.pf_update_and_resample_reference(*args)
@@ -220,7 +244,7 @@ def phase_b1(pf_kernels, device) -> dict:
         non_tie = int((differs & ~tie).sum())
         est_err = float((kest - rest).abs().max())
         lw_err = float((klw - rlw).abs().max())
-        results.append({"shape": [n, m, d], "index_mismatch_non_tie": non_tie,
+        results.append({"shape": [n, m, d], "lead": lead, "index_mismatch_non_tie": non_tie,
                         "tie_slots": int(tie.sum()), "mismatch_at_ties": int((differs & tie).sum()),
                         "max_abs_err_est": est_err, "max_abs_err_lw": lw_err})
         check(non_tie == 0, f"B1 {n, m, d}: {non_tie} non-tie index mismatches")
@@ -395,27 +419,105 @@ def phase_times(model, pf_kernels, device) -> dict:
     model.definition = dataclasses.replace(model.definition, num_particles_eval=M)
 
     kernel = {}
-    for n, m, d in ((N, M, 3), (N, 100, 3), (SAT_N, SAT_M, 3)):
+    for name, n, m, d, alpha in (("b1", N, M, 3, 1.0), ("b1", N, 100, 3, 1.0),
+                                 ("b1", SAT_N, SAT_M, 3, 1.0), ("b1", N, 1024, 8, 1.0),
+                                 ("b4", N, M, 3, SOFT_ALPHA)):
         args = b1_inputs(n, m, d, device, seed=9)
         reps = 200
 
         def many(fn):
-            return lambda: [fn(*args) for _ in range(reps)]
+            return lambda: [fn(*args, alpha=alpha) for _ in range(reps)]
 
         k_ms = cuda_ms(many(pf_kernels.pf_update_and_resample), repeats=5) / reps
         p_ms = cuda_ms(many(pf_kernels.pf_update_and_resample_reference), repeats=5) / reps
-        bound, bound_by = tail_bound_ms(n, m, d, soft=False)
-        kernel[f"{n}x{m}x{d}"] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                                  "bound_by": bound_by}
-    emit({"phase": "times", "forward_loop": loops, "b1": kernel,
+        bound, bound_by = tail_bound_ms(n, m, d, soft=alpha < 1.0)
+        kernel[f"{name}_{n}x{m}x{d}"] = {
+            "alpha": alpha, "ms": k_ms, "plain_ms": p_ms,
+            "device_us": device_us(lambda: pf_kernels.pf_update_and_resample(*args, alpha=alpha),
+                                   ROW_TAIL_KERNEL),
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    particles = b1_inputs(N, M, 3, device, seed=9)[2]
+    floor = {"shape": [N, M, 3], "what": "particles.clone()",
+             "ms": cuda_ms(lambda: [particles.clone() for _ in range(200)], repeats=5) / 200,
+             "device_us": device_us(particles.clone, "")}
+    emit({"phase": "times", "forward_loop": loops, "tails": kernel, "floor": floor,
+          "launch_path_us": launch_parts(pf_kernels, b1_inputs(N, M, 3, device, seed=9)),
           "b1_library_ms": None, "tf32": False})
-    return kernel[f"{N}x{M}x3"]
+    return {"b1": kernel[f"b1_{N}x{M}x3"], "b4": {**kernel[f"b4_{N}x{M}x3"], "shape": [N, M, 3]}}
+
+
+def device_us(fn, name: str, reps: int = 50):
+    """Median device time (torch.profiler) of the kernels whose name holds
+    `name` over `reps` calls of fn(), in µs; None where two profiled runs
+    both saw none (a trace can come back without device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in device_kernels(prof) if name in e.name]
+        if us:
+            return statistics.median(us)
+    return None
+
+
+def launch_parts(pf_kernels, args, calls: int = 10000) -> dict:
+    """Host µs of one B1 call through `pf_kernels` (the port's module, or a
+    copy of an earlier one) and of its parts, each the mean of `calls`
+    back-to-back repeats on the host clock (perf_counter_ns), the device
+    drained before and after: the whole wrapper, its input checks, the three
+    output allocations, finding the stream, and the bare C call with its
+    pointers (one launch)."""
+    import torch
+
+    lw, ll, particles, uniforms = args
+    n, m, d = particles.shape
+    outs = (torch.empty_like(particles), torch.empty_like(lw), particles.new_empty((n, d)))
+    ptrs = [t.data_ptr() for t in (lw, ll, uniforms, particles, *outs)]
+    index = particles.get_device()
+    if hasattr(pf_kernels, "_Entries"):  # this PR's wrapper
+        entry = pf_kernels._Entries.b1 or pf_kernels._Entries.bind().b1
+
+        def stream():
+            return torch.cuda.current_device() == index and pf_kernels._Entries.stream(index)
+    else:  # the wrapper before it
+        entry = pf_kernels._kernels()["b1"]
+
+        def stream():
+            with torch.cuda.device(particles.device):
+                return torch.cuda.current_stream().cuda_stream
+    raw = stream()
+    parts = {
+        "call": lambda: pf_kernels.pf_update_and_resample(*args),
+        "checks": lambda: pf_kernels._check_cuda_inputs(*args),
+        "outputs": lambda: (torch.empty_like(particles), torch.empty_like(lw),
+                            torch.empty((n, d), dtype=particles.dtype, device=particles.device)),
+        "stream": stream,
+        "pointers": lambda: [t.data_ptr() for t in (lw, ll, uniforms, particles, *outs)],
+        "c_call": lambda: entry(*ptrs, n, m, d, raw),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter_ns()
+        torch.cuda.synchronize()
+        out[name] = (t1 - t0) / calls / 1e3
+    return out
 
 
 def phase_profile(model, pf_kernels, device) -> None:
     """Where the time goes: one warm forward_loop at N=16, M=300 under
     torch.profiler — device busy share, kernels per step, the largest
-    kernels — and B1's device time per launch."""
+    kernels — and B1's and B4's device time per launch."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -441,18 +543,16 @@ def phase_profile(model, pf_kernels, device) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
 
     args = b1_inputs(N, M, 3, device, seed=6)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof_b1:
-        for _ in range(50):
-            pf_kernels.pf_update_and_resample(*args)
-        torch.cuda.synchronize()
-    b1_us = [e.time_range.elapsed_us() for e in device_kernels(prof_b1)
-             if "pf_tail_kernel" in e.name]
     emit({"phase": "profile", "N": N, "M": M, "T": T, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / wall_us,
           "device_kernels_per_step": len(kernels) / T,
           "top_kernels": [{"name": k[:80], "count": c, "ms": us / 1e3}
                           for k, (c, us) in top],
-          "b1_device_us_per_launch": statistics.median(b1_us) if b1_us else None})
+          "b1_device_us_per_launch": device_us(
+              lambda: pf_kernels.pf_update_and_resample(*args), ROW_TAIL_KERNEL),
+          "b4_device_us_per_launch": device_us(
+              lambda: pf_kernels.pf_update_and_resample(*args, alpha=SOFT_ALPHA),
+              ROW_TAIL_KERNEL)})
 
 
 # ---------------------------------------------------------------------------
@@ -882,8 +982,8 @@ def phase_b45(pf_kernels, device) -> dict:
 
     worst = {"b4": 0.0, "b5": 0.0}
     results = []
-    for i, (n, m, d, alpha) in enumerate(B45_SHAPES):
-        args = b1_inputs(n, m, d, device, seed=40 + i)
+    for i, (n, m, d, alpha, lead) in enumerate(B45_SHAPES):
+        args = b1_inputs(n, m, d, device, seed=40 + i, lead=lead)
         name = "b5" if m > pf_kernels.SMALL_M_MAX else "b4"
         counter = getattr(pf_kernels, f"launch_{name}")
         before = counter.launches
@@ -902,7 +1002,7 @@ def phase_b45(pf_kernels, device) -> dict:
         else:
             lw_err = float((klw - pf_kernels.importance_weights(args[0], args[1], kidx, alpha))
                            .abs().max())
-        results.append({"kernel": name, "shape": [n, m, d], "alpha": alpha,
+        results.append({"kernel": name, "shape": [n, m, d], "alpha": alpha, "lead": lead,
                         "index_mismatch_non_tie": non_tie, "tie_slots": int(tie.sum()),
                         "mismatch_at_ties": int((differs & tie).sum()),
                         "max_abs_err_est": est_err, "max_abs_err_lw": lw_err})
@@ -1259,7 +1359,7 @@ def phase_tail_paths(door_models, pf_kernels, device) -> dict:
 
 
 def phase_new_times(fused_step, pf_kernels, b3_defn, device) -> dict:
-    """B3, B4 and B5 at their paths' shapes: host-paced time (CUDA events
+    """B3 and B5 at their paths' shapes: host-paced time (CUDA events
     around back-to-back calls), device time per launch (torch.profiler), the
     plain version's time and the bound."""
     from torch.profiler import ProfilerActivity, profile
@@ -1287,8 +1387,7 @@ def phase_new_times(fused_step, pf_kernels, b3_defn, device) -> dict:
                   "max_active_clusters": plan.max_active_clusters,
                   "second_wave_from_N": plan.max_active_clusters + 1,
                   "trunks": "fp32 FMA", "library_ms": None}}
-    for name, (n, m, d, alpha) in (("b4", (N, M, 3, SOFT_ALPHA)),
-                                   ("b5", (N, 2048, 3, 1.0)),
+    for name, (n, m, d, alpha) in (("b5", (N, 2048, 3, 1.0)),
                                    ("b5_M16384", (N, 16384, 3, 1.0))):
         args = b1_inputs(n, m, d, device, seed=81)
         reps = 200 if m <= 2048 else 50
@@ -1302,21 +1401,99 @@ def phase_new_times(fused_step, pf_kernels, b3_defn, device) -> dict:
             for _ in range(20):
                 pf_kernels.pf_update_and_resample(*args, alpha=alpha)
             torch.cuda.synchronize()
-        kernel_name = "pf_tail_kernel" if name == "b4" else "cluster_tail"
-        dev = [e.time_range.elapsed_us() for e in device_kernels(prof) if kernel_name in e.name]
+        dev = [e.time_range.elapsed_us() for e in device_kernels(prof) if "cluster_tail" in e.name]
         bound, bound_by = tail_bound_ms(n, m, d, alpha < 1.0)
         out[name] = {"shape": [n, m, d], "alpha": alpha, "ms": k, "plain_ms": p,
                      "device_ms": statistics.median(dev) / 1e3 if dev else None,
-                     "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
-        if name != "b4":
-            out[name].update(pf_kernels.b5_launch(n, m, alpha)._asdict())
+                     "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                     **pf_kernels.b5_launch(n, m, alpha)._asdict()}
     emit({"phase": "new_kernel_times", **out, "tf32": False})
     return out
 
 
-def main() -> int:
+def load_yardstick(root: str):
+    """The tail wrapper ``ops/pf_kernels.py`` of another checkout of the
+    port at `root` (an earlier commit unpacked with ``git archive``), loaded
+    as a package of its own beside the port; its kernels build into
+    `root`/build."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    ops = Path(root).resolve() / "multimodalfilter_tpu_torch" / "ops"
+    spec = importlib.util.spec_from_file_location(
+        "yardstick_ops", ops / "__init__.py", submodule_search_locations=[str(ops)])
+    package = importlib.util.module_from_spec(spec)
+    sys.modules["yardstick_ops"] = package
+    spec.loader.exec_module(package)
+    return importlib.import_module("yardstick_ops.pf_kernels")
+
+
+def phase_yardstick(old, pf_kernels, pf_module, model, device) -> None:
+    """This checkout's B1 and B4 against `old` (the same wrapper and kernels
+    from another checkout) on the same card, each measurement in turns (old,
+    new, new, old): device µs per launch (torch.profiler) at the eval
+    paths' shapes, host-paced µs (CUDA events around 200 back-to-back
+    calls), the host µs of a call and its parts (``launch_parts``), and
+    filter-steps/s of the per-step eval loop at N=16, T=100, M=300 with
+    each wrapper in the loop."""
+    import dataclasses
+
     import torch
 
+    turns = (("old", old), ("new", pf_kernels), ("new_2", pf_kernels), ("old_2", old))
+    names = {"old": "pf_tail_kernel", "new": ROW_TAIL_KERNEL}
+    out = {}
+    for label, n, m, d, alpha in (("b1", N, M, 3, 1.0), ("b4", N, M, 3, SOFT_ALPHA),
+                                  ("b1", SAT_N, SAT_M, 3, 1.0), ("b1", N, 1024, 8, 1.0),
+                                  ("b4", N, 1024, 8, 0.5)):
+        args = b1_inputs(n, m, d, device, seed=90)
+        row = {}
+        for turn, mod in turns:
+            def call():
+                return mod.pf_update_and_resample(*args, alpha=alpha)
+
+            row[turn] = {"device_us": device_us(call, names[turn.split("_")[0]]),
+                         "host_paced_us": 1e3 * cuda_ms(
+                             lambda: [call() for _ in range(200)], repeats=5) / 200}
+        out[f"{label}_{n}x{m}x{d}"] = row
+    parts = {turn: launch_parts(mod, b1_inputs(N, M, 3, device, seed=91))
+             for turn, mod in turns}
+
+    model.definition = dataclasses.replace(model.definition, num_particles_eval=M)
+    obs, controls = sequences(T, N, seed=92)
+    obs = {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
+    controls = torch.from_numpy(controls).to(device)
+    mean, cov = initial_state(N)
+
+    def run():
+        model.initialize_beliefs(mean=mean, covariance=cov)
+        model.forward_loop(observations=obs, controls=controls)
+
+    loop = {}
+    real_tail = pf_module.pf_update_and_resample
+    try:
+        for turn, mod in turns:
+            pf_module.pf_update_and_resample = mod.pf_update_and_resample
+            ms, host_ms = loop_ms(run, repeats=5)
+            loop[turn] = {"ms_per_loop": ms, "host_ms_per_loop": host_ms,
+                          "filter_steps_per_s": T * N / (ms / 1e3)}
+    finally:
+        pf_module.pf_update_and_resample = real_tail
+    emit({"phase": "yardstick", "tails": out, "launch_path_us": parts,
+          "forward_loop": {"N": N, "M": M, "T": T, **loop}})
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--yardstick", metavar="DIR",
+                        help="also time B1 and B4 against the wrapper and kernels of the "
+                             "checkout at DIR, in turns")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1336,7 +1513,17 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     start = t0 = time.perf_counter()
+    old = None
+    if opts.yardstick:  # its build runs beside this checkout's
+        import threading
+
+        old = load_yardstick(opts.yardstick)
+        old_build = threading.Thread(target=sys.modules["yardstick_ops._build"].build,
+                                     args=(["pf_resample"],))
+        old_build.start()
     built = _build.build()
+    if old is not None:
+        old_build.join()
     build_s = time.perf_counter() - t0
     emit({"phase": "card", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1355,6 +1542,8 @@ def main() -> int:
                       pf_estimate.pf_update_estimate_fwd,
                       pf_estimate.pf_update_estimate_bwd), device)
     times = phase_times(main_path["model"], pf_kernels, device)
+    if old is not None:
+        phase_yardstick(old, pf_kernels, pf_module, main_path["model"], device)
     new_times = phase_new_times(fused_step, pf_kernels, b3_check["defn"], device)
     b2_times, train_rates = phase_train_times(
         train_path["model"], train_path["trajectories"], pf_estimate, device)
@@ -1373,10 +1562,10 @@ def main() -> int:
         "max_abs_err_est": b1_check["max_abs_err_est"],
         "index_mismatch_non_tie": b1_check["index_mismatch_non_tie"],
         "shape": [N, M, 3],
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"],
+        "ms": times["b1"]["ms"],
+        "plain_ms": times["b1"]["plain_ms"],
+        "bound_ms": times["b1"]["bound_ms"],
+        "bound_by": times["b1"]["bound_by"],
         "library_ms": None,
     }] + [{
         "name": f"pf_update_estimate_{part}",
@@ -1408,11 +1597,12 @@ def main() -> int:
         "replaces": f"multimodalfilter_tpu/ops/pallas_pf.py:{line}",
         "launches": tail_paths[path]["launches"][key],
         "max_abs_err": b45_check[key],
-        "shape": new_times[key]["shape"],
-        **{k: new_times[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms")},
-    } for name, key, line, path in (("pf_soft_resample", "b4", 134, f"b4_M{M}"),
-                                    ("pf_resample_large", "b5", 217, "b5_M2048"))]})
+        "shape": source[key]["shape"],
+        **{k: source[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+    } for name, key, line, path, source in (
+        ("pf_soft_resample", "b4", 134, f"b4_M{M}", times),
+        ("pf_resample_large", "b5", 217, "b5_M2048", new_times))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -21,12 +21,43 @@
 // Layout is the JAX public layout: lw, ll, u (N, M); particles and out
 // (N, M, D) row-major; est (N, D). fp32, contiguous, one device.
 //
-// Design of B1 and B4 (M <= 1024): one thread block per batch row, its
-// threads striding over M (pf_tail.cuh's single-block functions). The TPU
-// kernels' triangular-matmul cumsum becomes a warp-shuffle block scan; their
-// (M x M) compare-and-count one binary search per output slot; their
-// one-hot-matmul gather a direct load. Only the CDF is kept, in shared
-// memory; p, the mixture and its log are recomputed from lw + ll.
+// Design of B1 and B4 (M <= 1024): one thread block per batch row, one
+// thread per slot (M rounded up to whole warps), one kernel per D <= 8 so
+// no loop over D is predicated, and one pass: every input is read from
+// device memory once, nothing written is read back.
+//   1. Every load at entry: the thread's lw + ll, u and particle (into
+//      registers), the particle also stored into the block's shared copy of
+//      the row, by coordinate (D planes of M floats: conflict-free stores,
+//      and the gather's source).
+//   2. Per warp, from registers: the warp's max (one redux.sync on the
+//      float's order-preserving int), e = exp(logit - warp max) (the only
+//      exp of a slot), the inclusive shuffle scan of e in slot order, and
+//      the estimate's sums of e x[., d]. The warp's last slot publishes
+//      (max, scan, sums) in shared memory.  -- barrier 1
+//   3. Every warp merges the warps' partials, lane w holding warp w's: the
+//      row max (redux), each warp's factor exp(max_w - max) and one shuffle
+//      scan of the warps' rescaled totals, whose last entry is the row's sum
+//      and whose entries are the warps' CDF offsets; warp 0 sums the
+//      estimate in the same shuffle rounds. All warps compute the same
+//      values in the same order, so they agree bit for bit. Each thread
+//      writes its slot's CDF entry (offset + scale scan, pf_tail.cuh's
+//      cluster_cdf) to shared memory at an XOR-swizzled position, the CDF
+//      padded with +inf to twice the largest power of two <= M; in soft
+//      mode also the importance weight lwn - log q its slot would carry.
+//      -- barrier 2
+//   4. Each thread finds #(cdf < target) by binary lifting over the padded
+//      CDF (no probe branches; the swizzle spreads a warp's probes, which
+//      share their low bits, over the banks) and records its draw in shared
+//      memory; in soft mode it keeps the drawn slot's weight in a register
+//      and the warp publishes the (max, sum of exp) of its new weights.
+//      -- barrier 3
+//   5. The outputs, each written once: the log-normalised weights from
+//      registers, and the row's M x D particle floats in order (consecutive
+//      threads on consecutive floats) from the shared copy.
+// Three barriers in either mode (13 and 17 in the design this replaced).
+// The TPU kernels' triangular-matmul cumsum becomes the shuffle scans;
+// their (M x M) compare-and-count the binary search; their one-hot-matmul
+// gather a shared-memory read.
 //
 // Design of B5 (M > 1024): each batch row is split over a thread-block
 // cluster of C <= 8 blocks (C chosen by the caller from M), each block
@@ -58,11 +89,16 @@
 // particles in; particles and lw out; est out) and does a few tens of
 // operations per slot plus log2(M) for the search, so the card's memory
 // bounds it: 0.2 MB at N = 16, M = 300, D = 3, under 0.1 us at 3.35 TB/s;
-// 10.5 MB at N = 16, M = 16,384, 3.1 us. At B1's and B4's shapes launch
-// latency sets the floor; the design answers with one launch per filter
-// step (normalise, estimate, scan, search, gather and reweight fused) and
-// batch rows in parallel blocks; B5 adds N C blocks and a single pass over
-// device memory.
+// 10.5 MB at N = 16, M = 16,384, 3.1 us. At B1's and B4's shapes latency
+// sets the time instead: on the H100 (700 W) B1 takes 2.6-2.7 us a launch
+// at N = 16, M = 300 (the previous design 3.7), B4 3.0-3.1 (4.6-4.7),
+// against ~1 us for one copy kernel over the same particles; phase timers
+// put ~1,000 cycles in the first read from L2, ~1,000 in the merge's
+// dependent shuffles and ~900 in the search's nine dependent shared
+// reads (PERF.md). The design answers with one launch per filter step,
+// batch rows in parallel blocks, one round trip to device memory in and
+// one out, and three block barriers. B5 adds N C blocks and a single pass
+// over device memory.
 //
 // Entry points: plain C functions (built with nvcc into a shared library and
 // bound with ctypes). Each launches on the given stream, allocates nothing,
@@ -75,8 +111,10 @@ namespace {
 
 using namespace pf_tail;
 
-constexpr int kSmallMaxM = 1024;        // B1 and B4
-constexpr int kMaxThreads = 1024;
+constexpr int kSmallMaxM = 1024;  // B1 and B4
+// B1 and B4: one thread a slot.
+constexpr int kRowThreads = kSmallMaxM;
+constexpr int kRowWarps = kRowThreads / 32;
 // B5: blocks of at most 1,024 threads, each holding up to kMaxPer slots of
 // its slice in registers: slices of up to 8,192 slots, with the row's scans
 // in shared memory (C S floats up to 55,000, 215 KB); the strided kernel
@@ -85,78 +123,242 @@ constexpr int kClusterThreads = 1024;
 constexpr int kSharedRowMax = 55000;
 constexpr int kMaxPer = 8;
 
-template <bool kSoft>
-__global__ void pf_tail_kernel(const float* __restrict__ lw,
-                               const float* __restrict__ ll,
-                               const float* __restrict__ u,
-                               const float* __restrict__ particles,
-                               float* __restrict__ out_particles,
-                               float* __restrict__ out_lw,
-                               float* __restrict__ est,
-                               int M, int D, float alpha, float uniform_part,
-                               float neg_log_m) {
-  extern __shared__ float cdf[];
-  __shared__ float red[32];
+// What a warp of B1/B4 publishes after its loads.
+struct WarpPartials {
+  float max;         // max logit over the warp's slots
+  float total;       // sum of exp(logit - max) over them: the scan at its last slot
+  float est[kMaxD];  // sum of exp(logit - max) x[., d]
+};
 
+// B1's and B4's static shared memory: the warps' partials, in soft mode
+// also the new weights'.
+constexpr size_t kRowStaticSmem = kRowWarps * (sizeof(WarpPartials) + sizeof(float2));
+
+// An int that orders as the float does (a negative float's magnitude bits
+// flipped), so a warp's float max is one redux.sync; the map is its own
+// inverse.
+__device__ __forceinline__ int float_order(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float warp_max_redux(float x) {
+  const int m = __reduce_max_sync(kFull, float_order(x));
+  return __int_as_float(m >= 0 ? m : m ^ 0x7fffffff);
+}
+
+// Position of CDF slot i in shared memory: the low five bits XOR-folded
+// with the next five, so the search's probes, which share their low bits,
+// spread over the 32 banks.
+__device__ __forceinline__ int cdf_slot(int i) { return i ^ ((i >> 5) & 31); }
+
+// B1 (kSoft false) and B4 (kSoft true) for rows of kD-dimensional
+// particles: one block per batch row, thread i owning slot i; the steps are
+// numbered as in the design note above. Dynamic shared memory: the row's
+// particles by coordinate (kD planes of M), its CDF (M, at cdf_slot), the
+// drawn slots (M) and, in soft mode, each slot's importance weight (M).
+template <bool kSoft, int kD>
+__global__ void __launch_bounds__(kRowThreads)
+pf_row_tail_kernel(const float* __restrict__ lw, const float* __restrict__ ll,
+                   const float* __restrict__ u, const float* __restrict__ particles,
+                   float* __restrict__ out_particles, float* __restrict__ out_lw,
+                   float* __restrict__ est, int M, float alpha, float uniform_part,
+                   float neg_log_m) {
+  extern __shared__ float4 s_dyn4[];
+  __shared__ WarpPartials parts[kRowWarps];
+  __shared__ float2 soft_parts[kRowWarps];  // soft: (max, sum of exp) of the new weights
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool valid = tid < M;
+  const int top = 1 << (31 - __clz(M));  // the largest power of two <= M
   const size_t row = static_cast<size_t>(blockIdx.x) * M;
-  const float* x_row = particles + row * D;
+  float* xs = reinterpret_cast<float*>(s_dyn4);
+  float* cdf = xs + kD * M;
+  int* drawn = reinterpret_cast<int*>(cdf + 2 * top);
+  float* reweight = reinterpret_cast<float*>(drawn + M);
 
-  const auto logit = [&](int m) { return lw[row + m] + ll[row + m]; };
-  const RowStats st = row_stats(logit, M, red);
-  const auto p = [&](int m) { return prob(logit(m), st); };
-  const auto x = [&](int m, int d) { return x_row[static_cast<size_t>(m) * D + d]; };
-  row_estimate(p, x, M, D, red, est + static_cast<size_t>(blockIdx.x) * D);
-
-  float last;
-  if (kSoft) {
-    last = row_cdf([&](int m) { return mixture(p(m), alpha, uniform_part); }, M, cdf, red);
-  } else {
-    last = row_cdf(p, M, cdf, red);
+  // 1. Every load of the thread's slot at once.
+  const float v = valid ? lw[row + tid] + ll[row + tid] : -INFINITY;
+  float target = valid ? u[row + tid] : 0.0f;
+  float x[kD];
+#pragma unroll
+  for (int d = 0; d < kD; ++d) x[d] = valid ? particles[(row + tid) * kD + d] : 0.0f;
+  if (valid) {
+    if (!kSoft) out_lw[row + tid] = neg_log_m;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) xs[d * M + tid] = x[d];
   }
 
-  const float log_sum = logf(st.sum);
-  float new_max = -INFINITY;
-  for (int j = threadIdx.x; j < M; j += blockDim.x) {
-    const float target = kSoft ? u[row + j] * last : u[row + j];
-    const int src = cdf_lower_bound(cdf, M, target);
-    const size_t s = (row + src) * D, o = (row + j) * D;
-    for (int d = 0; d < D; ++d) out_particles[o + d] = particles[s + d];
+  // 2. The warp's max, e, the inclusive scan of e in slot order, the
+  // estimate's sums.
+  const float wmax = warp_max_redux(v);
+  const float e = v > -INFINITY ? expf(v - wmax) : 0.0f;
+  const float pre = warp_inclusive_scan(e, lane);
+  float acc[kD];
+#pragma unroll
+  for (int d = 0; d < kD; ++d) acc[d] = e * x[d];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int d = 0; d < kD; ++d) acc[d] += __shfl_xor_sync(kFull, acc[d], o);
+  }
+  // The warp's last slot publishes: its scan is the warp's total.
+  if (lane == min(31, M - 1 - 32 * warp)) {
+    parts[warp].max = wmax;
+    parts[warp].total = pre;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) parts[warp].est[d] = acc[d];
+  }
+  __syncthreads();  // barrier 1: the partials and the shared particles
+
+  // 3. Every warp merges the warps' partials, lane w holding warp w's: the
+  // row's max g, y_w = total_w exp(max_w - g) and their inclusive scan (its
+  // last entry the row's sum), so warp w's CDF starts at
+  // alpha scan_{w-1} / sum + 32 w (1 - alpha) / M. Warp 0 also sums the
+  // estimate, in the same shuffle rounds.
+  const bool has = lane < nwarps;
+  const float pmax = has ? parts[lane].max : -INFINITY;
+  const float g = warp_max_redux(pmax);
+  const float f = pmax > -INFINITY ? expf(pmax - g) : 0.0f;
+  float y = has ? __fmul_rn(parts[lane].total, f) : 0.0f;
+  float r[kD];
+  if (warp == 0) {
+#pragma unroll
+    for (int d = 0; d < kD; ++d) r[d] = has ? __fmul_rn(parts[lane].est[d], f) : 0.0f;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float below = __shfl_up_sync(kFull, y, o);
+      if (lane >= o) y += below;
+#pragma unroll
+      for (int d = 0; d < kD; ++d) r[d] += __shfl_xor_sync(kFull, r[d], o);
+    }
+  } else {
+    y = warp_inclusive_scan(y, lane);
+  }
+  const float sum = __shfl_sync(kFull, y, 31), inv_sum = __frcp_rn(sum);
+  if (warp == 0 && lane == 0) {
+#pragma unroll
+    for (int d = 0; d < kD; ++d)
+      est[static_cast<size_t>(blockIdx.x) * kD + d] = __fmul_rn(r[d], inv_sum);
+  }
+  // Warp w's CDF entry at lane l: offset_w + (scale_w scan_l + (l + 1) (1 - alpha) / M).
+  const auto offset_of = [&](int w) {
+    const float before = w > 0 ? __shfl_sync(kFull, y, w - 1) : 0.0f;
+    return __fadd_rn(__fmul_rn(alpha, __fmul_rn(before, inv_sum)),
+                     __fmul_rn(static_cast<float>(32 * w), uniform_part));
+  };
+  const float prob_scale = __fmul_rn(__shfl_sync(kFull, f, warp), inv_sum);  // p = e prob_scale
+  const float scale = __fmul_rn(alpha, prob_scale);
+  const float offset = offset_of(warp);
+  // The padding, [M, 2 top - 1): fewer than top <= M slots, one a thread.
+  if (M + tid < 2 * top - 1) cdf[cdf_slot(M + tid)] = INFINITY;
+  if (valid) {
+    cdf[cdf_slot(tid)] = cluster_cdf(offset, scale, pre, lane, uniform_part);
     if (kSoft) {
-      // Importance reweight at the drawn index: lwn - log q, both
-      // recomputed from lw + ll (normalised below).
-      const float v = logit(src);
-      const float lwn = v - st.max - log_sum;
-      const float w = lwn - logf(mixture(prob(v, st), alpha, uniform_part));
-      out_lw[row + j] = w;
-      new_max = fmaxf(new_max, w);
-    } else {
-      out_lw[row + j] = neg_log_m;
+      // The importance weight a draw of this slot carries: lwn - log q.
+      const float q = mixture(__fmul_rn(e, prob_scale), alpha, uniform_part);
+      reweight[tid] = (v - g - logf(sum)) - logf(q);
     }
   }
   if (kSoft) {
-    // Log-normalise the new weights. Each thread reads back only the slots
-    // it wrote, so the reductions' barriers are all the ordering it needs.
-    new_max = block_max(new_max, red);
-    float s = 0.0f;
-    for (int j = threadIdx.x; j < M; j += blockDim.x) s += expf(out_lw[row + j] - new_max);
-    const float shift = new_max + logf(block_sum(s, red));
-    for (int j = threadIdx.x; j < M; j += blockDim.x) out_lw[row + j] -= shift;
+    // Soft targets are u cdf[M - 1]: that entry, formed as its owner forms
+    // it (its scan is the last warp's total).
+    const int last = nwarps - 1;
+    const float last_scale = __fmul_rn(alpha, __fmul_rn(__shfl_sync(kFull, f, last), inv_sum));
+    target *= cluster_cdf(offset_of(last), last_scale, parts[last].total, (M - 1) & 31,
+                          uniform_part);
+  }
+  __syncthreads();  // barrier 2: the CDF (and the importance weights)
+
+  // 4. The draw: #(cdf < target) clipped to M - 1, by binary lifting over
+  // the CDF padded with +inf to twice the largest power of two <= M, so no
+  // probe needs a bound.
+  int lo = 0;
+  for (int step = top; step > 0; step >>= 1)
+    lo += cdf[cdf_slot(lo + step - 1)] < target ? step : 0;
+  const int src = min(lo, M - 1);
+  float w = -INFINITY;
+  if (valid) {
+    drawn[tid] = src;
+    if (kSoft) w = reweight[src];
+  }
+  if (kSoft) {
+    const float m2 = warp_max_redux(w);
+    const float s2 = warp_sum(w > -INFINITY ? expf(w - m2) : 0.0f);
+    if (lane == 0) soft_parts[warp] = make_float2(m2, s2);
+  }
+  __syncthreads();  // barrier 3: the draws (and the new weights' partials)
+
+  // 5. The outputs.
+  if (kSoft) {
+    const float2 sp = has ? soft_parts[lane] : make_float2(-INFINITY, 0.0f);
+    const float g2 = warp_max_redux(sp.x);
+    const float shift = g2 + logf(warp_sum(sp.x > -INFINITY ? sp.y * expf(sp.x - g2) : 0.0f));
+    if (valid) out_lw[row + tid] = w - shift;
+  }
+  // Float f of the row's output is coordinate f % kD of slot f / kD; a
+  // block of at least M threads covers the row's M kD floats in kD rounds,
+  // all their reads issued at once.
+  float* out_row = out_particles + row * kD;
+#pragma unroll
+  for (int k = 0; k < kD; ++k) {
+    const int fl = tid + k * blockDim.x;
+    if (fl < M * kD) out_row[fl] = xs[(fl % kD) * M + drawn[fl / kD]];
   }
 }
 
+template <bool kSoft, int kD>
+cudaError_t launch_row_d(const float* lw, const float* ll, const float* u, const float* particles,
+                  float* out_particles, float* out_lw, float* est, int N, int M, float alpha,
+                  float uniform_part, float neg_log_m, cudaStream_t stream) {
+  const int threads = (M + 31) / 32 * 32;
+  // The CDF padded to 2 top floats, top the largest power of two <= M: at
+  // most 1024 x (8 + 4) floats, 49,152 bytes, which with the static partials
+  // passes the 48 KB a block may use without raising its limit.
+  int top = 1;
+  while (2 * top <= M) top *= 2;
+  const size_t smem = (static_cast<size_t>(M) * (kD + (kSoft ? 2 : 1)) + 2 * top) * sizeof(float);
+  if (smem + kRowStaticSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(pf_row_tail_kernel<kSoft, kD>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  pf_row_tail_kernel<kSoft, kD><<<N, threads, smem, stream>>>(
+      lw, ll, u, particles, out_particles, out_lw, est, M, alpha, uniform_part, neg_log_m);
+  return cudaGetLastError();
+}
+
+// B1 and B4: one thread a slot, rounded up to whole warps; one kernel for
+// each D <= kMaxD.
 template <bool kSoft>
-int launch(const float* lw, const float* ll, const float* u, const float* particles,
-           float* out_particles, float* out_lw, float* est, int N, int M, int D,
-           float alpha, void* stream) {
-  int threads = ((M + 31) / 32) * 32;
-  threads = threads < 256 ? 256 : (threads > kMaxThreads ? kMaxThreads : threads);
-  const size_t smem = static_cast<size_t>(M) * sizeof(float);
-  const float uniform_part = static_cast<float>((1.0 - static_cast<double>(alpha)) / M);
+int launch_row(const float* lw, const float* ll, const float* u, const float* particles,
+               float* out_particles, float* out_lw, float* est, int N, int M, int D,
+               float alpha, void* stream) {
+  const float uniform_part = kSoft ? static_cast<float>((1.0 - static_cast<double>(alpha)) / M)
+                                   : 0.0f;
   const float neg_log_m = static_cast<float>(-log(static_cast<double>(M)));
-  pf_tail_kernel<kSoft><<<N, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      lw, ll, u, particles, out_particles, out_lw, est, M, D, alpha, uniform_part,
-      neg_log_m);
-  return static_cast<int>(cudaGetLastError());
+  alpha = kSoft ? alpha : 1.0f;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+#define ROW_LAUNCH(DIM)                                                                  \
+  case DIM:                                                                              \
+    return static_cast<int>(launch_row_d<kSoft, DIM>(lw, ll, u, particles, out_particles, \
+                                                     out_lw, est, N, M, alpha,            \
+                                                     uniform_part, neg_log_m, s));
+    ROW_LAUNCH(1)
+    ROW_LAUNCH(2)
+    ROW_LAUNCH(3)
+    ROW_LAUNCH(4)
+    ROW_LAUNCH(5)
+    ROW_LAUNCH(6)
+    ROW_LAUNCH(7)
+    ROW_LAUNCH(8)
+#undef ROW_LAUNCH
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // B5's importance reweight at a drawn slot (soft mode): the normalised
@@ -668,8 +870,8 @@ extern "C" int pf_update_and_resample_f32(const float* lw, const float* ll,
                                           float* est, int N, int M, int D,
                                           void* stream) {
   if (bad_shape(N, M, D) || M > kSmallMaxM) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<false>(lw, ll, u, particles, out_particles, out_lw, est, N, M, D, 1.0f,
-                       stream);
+  return launch_row<false>(lw, ll, u, particles, out_particles, out_lw, est, N, M, D,
+                           1.0f, stream);
 }
 
 // B4: soft resampling (alpha < 1), M <= 1024.
@@ -680,8 +882,8 @@ extern "C" int pf_soft_resample_f32(const float* lw, const float* ll, const floa
   if (bad_shape(N, M, D) || M > kSmallMaxM || !(alpha < 1.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch<true>(lw, ll, u, particles, out_particles, out_lw, est, N, M, D, alpha,
-                      stream);
+  return launch_row<true>(lw, ll, u, particles, out_particles, out_lw, est, N, M, D,
+                          alpha, stream);
 }
 
 // B5: any M, soft when alpha < 1, in clusters of `cluster` blocks a row

@@ -154,30 +154,37 @@ def source_slots(particles, out):
     return idx, torch.equal(torch.gather(particles, 1, idx[:, :, None].expand(-1, -1, d)), out)
 
 
-@functools.cache
-def _kernels():
-    lib = load_library("pf_resample")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # Every pointer and the stream as c_void_p: without argtypes ctypes would
-    # pass a Python int as a 32-bit int and cut the pointer.
-    b1 = lib.pf_update_and_resample_f32
-    b1.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
-    b4 = lib.pf_soft_resample_f32
-    b4.argtypes = [ptr] * 7 + [i32, i32, i32, f32, ptr]
-    b5 = lib.pf_resample_large_f32
-    b5.argtypes = [ptr] * 8 + [i32] * 4 + [f32, ptr]
-    b5_plan = lib.pf_resample_large_plan
-    b5_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 3
-    for fn in (b1, b4, b5, b5_plan):
-        fn.restype = ctypes.c_int
-    return {"b1": b1, "b4": b4, "b5": b5, "b5_plan": b5_plan}
+class _Entries:
+    """The C entry points of ``csrc/pf_resample.cu``, bound once, at the
+    first launch (building the library if needed), and ``stream(index)``,
+    the current stream of a device as a raw handle (the call Triton's and
+    Inductor's launchers make: no ``torch.cuda.Stream`` object)."""
+
+    b1 = b4 = b5 = b5_plan = stream = None
+
+    @classmethod
+    def bind(cls):
+        cls.stream = torch._C._cuda_getCurrentRawStream
+        lib = load_library("pf_resample")
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # Every pointer and the stream as c_void_p: without argtypes ctypes
+        # would pass a Python int as a 32-bit int and cut the pointer.
+        specs = {"b1": ("pf_update_and_resample_f32", [ptr] * 7 + [i32] * 3 + [ptr]),
+                 "b4": ("pf_soft_resample_f32", [ptr] * 7 + [i32] * 3 + [f32, ptr]),
+                 "b5": ("pf_resample_large_f32", [ptr] * 8 + [i32] * 4 + [f32, ptr]),
+                 "b5_plan": ("pf_resample_large_plan", [i32] * 4 + [ctypes.POINTER(i32)] * 3)}
+        for key, (symbol, argtypes) in specs.items():
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            setattr(cls, key, fn)
+        return cls
 
 
 def _b5_plan(n: int, m: int, cluster: int, soft: bool, occupancy: bool):
     vals = [ctypes.c_int(0) for _ in range(3)]
     refs = [ctypes.byref(v) for v in vals]
-    rc = _kernels()["b5_plan"](n, m, cluster, int(soft), *refs[:2],
-                               refs[2] if occupancy else None)
+    rc = (_Entries.b5_plan or _Entries.bind().b5_plan)(n, m, cluster, int(soft), *refs[:2],
+                                                       refs[2] if occupancy else None)
     if rc != 0:
         raise RuntimeError(f"B5 launch plan failed: cudaError {rc}")
     return B5Launch(cluster, vals[0].value, bool(vals[1].value), vals[2].value)
@@ -194,14 +201,35 @@ def _b5_strided(m: int, cluster: int) -> bool:
     return _b5_plan(1, m, cluster, False, occupancy=False).strided
 
 
-def _check_cuda_inputs(log_weights, log_liks, particles, uniforms):
+def _check_cuda_inputs(log_weights, log_liks, particles, uniforms) -> int:
+    """Raises unless the four inputs are float32, contiguous, on one CUDA
+    device and of the tails' shapes (N, M) and (N, M, D), 1 <= D <= MAX_D.
+    Returns the device's index. One pass of cheap reads; which rule failed
+    is worked out only on failure."""
+    index = particles.get_device()
+    f32 = torch.float32
+    if (particles.is_cuda and particles.dim() == 3
+            and log_weights.get_device() == index and log_liks.get_device() == index
+            and uniforms.get_device() == index
+            and log_weights.dtype is f32 and log_liks.dtype is f32
+            and particles.dtype is f32 and uniforms.dtype is f32
+            and log_weights.is_contiguous() and log_liks.is_contiguous()
+            and particles.is_contiguous() and uniforms.is_contiguous()):
+        n, m, d = particles.shape
+        if (log_weights.shape == log_liks.shape == uniforms.shape == (n, m)
+                and 1 <= d <= MAX_D and n >= 1 and m >= 1):
+            return index
+    _refuse(log_weights, log_liks, particles, uniforms)
+
+
+def _refuse(log_weights, log_liks, particles, uniforms):
+    """Raises the error for inputs ``_check_cuda_inputs`` refused."""
     tensors = (log_weights, log_liks, particles, uniforms)
-    device = particles.device
-    if device.type != "cuda":
-        raise ValueError(f"the tail kernel needs CUDA tensors, got {device}")
+    if not particles.is_cuda:
+        raise ValueError(f"the tail kernel needs CUDA tensors, got {particles.device}")
     for x in tensors:
-        if x.device != device:
-            raise ValueError(f"inputs on several devices: {x.device} and {device}")
+        if x.device != particles.device:
+            raise ValueError(f"inputs on several devices: {x.device} and {particles.device}")
         if x.dtype != torch.float32:
             raise ValueError(f"the tail kernels take float32, got {x.dtype}")
         if not x.is_contiguous():
@@ -213,62 +241,77 @@ def _check_cuda_inputs(log_weights, log_liks, particles, uniforms):
                     ("uniforms", uniforms)):
         if tuple(x.shape) != (n, m):
             raise ValueError(f"{name} must be {(n, m)}, got {tuple(x.shape)}")
-    if not 1 <= d <= MAX_D or n < 1 or m < 1:
-        raise ValueError(f"the tail kernels take N, M >= 1 and 1 <= D <= {MAX_D}, "
-                         f"got {(n, m, d)}")
+    raise ValueError(f"the tail kernels take N, M >= 1 and 1 <= D <= {MAX_D}, got {(n, m, d)}")
 
 
-def _launch(name, args, *extra, cluster: int = 0):
-    log_weights, log_liks, particles, uniforms = args
+def _launch(entry, name, index, log_weights, log_liks, particles, uniforms, *extra,
+            cluster: int = 0):
+    """Allocates the outputs and calls the C entry `entry` on the current
+    stream of device `index`, which the inputs (checked) lie on."""
     n, m, d = particles.shape
     out = torch.empty_like(particles)
     out_lw = torch.empty_like(log_weights)
-    est = torch.empty((n, d), dtype=particles.dtype, device=particles.device)
-    pointers = [log_weights.data_ptr(), log_liks.data_ptr(), uniforms.data_ptr(),
-                particles.data_ptr(), out.data_ptr(), out_lw.data_ptr(), est.data_ptr()]
-    sizes = [n, m, d]
+    est = particles.new_empty((n, d))
+    pointers = (log_weights.data_ptr(), log_liks.data_ptr(), uniforms.data_ptr(),
+                particles.data_ptr(), out.data_ptr(), out_lw.data_ptr(), est.data_ptr())
     if cluster:
         # Rows that take B5's strided kernel keep their scans here.
         scratch = None
         if _b5_strided(m, cluster):
             scratch = torch.empty((n, m), dtype=torch.float32, device=particles.device)
-        pointers.append(None if scratch is None else scratch.data_ptr())
-        sizes.append(cluster)
-    with torch.cuda.device(particles.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _kernels()[name](*pointers, *sizes, *extra, stream)
+        pointers += (None if scratch is None else scratch.data_ptr(),)
+        extra = (cluster, *extra)
+    if index == torch.cuda.current_device():
+        rc = entry(*pointers, n, m, d, *extra, _Entries.stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = entry(*pointers, n, m, d, *extra, _Entries.stream(index))
     if rc != 0:
-        raise RuntimeError(f"{name.upper()} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     return out, out_lw, est
 
 
-def launch_b1(*args):
-    """B1 on CUDA tensors: multinomial, M <= SMALL_M_MAX."""
-    out = _launch("b1", args)
+def launch_b1(log_weights, log_liks, particles, uniforms, *, index: int = None):
+    """B1 on CUDA tensors: multinomial, M <= SMALL_M_MAX. `index` is the
+    device that ``_check_cuda_inputs`` returned for them; without it the
+    inputs are checked here."""
+    if index is None:
+        index = _check_cuda_inputs(log_weights, log_liks, particles, uniforms)
+    out = _launch(_Entries.b1 or _Entries.bind().b1, "B1", index,
+                  log_weights, log_liks, particles, uniforms)
     launch_b1.launches += 1
     return out
 
 
-def launch_b4(*args, alpha: float):
+def launch_b4(log_weights, log_liks, particles, uniforms, *, alpha: float,
+              index: int = None):
     """B4 on CUDA tensors: soft (alpha < 1), M <= SMALL_M_MAX."""
-    out = _launch("b4", args, alpha)
+    if index is None:
+        index = _check_cuda_inputs(log_weights, log_liks, particles, uniforms)
+    out = _launch(_Entries.b4 or _Entries.bind().b4, "B4", index,
+                  log_weights, log_liks, particles, uniforms, alpha)
     launch_b4.launches += 1
     return out
 
 
-def launch_b5(*args, alpha: float):
+def launch_b5(log_weights, log_liks, particles, uniforms, *, alpha: float,
+              index: int = None):
     """B5 on CUDA tensors: either mode, any M (the tail above SMALL_M_MAX),
     in clusters of ``b5_cluster_size(M)`` blocks a row. A cluster the card
     refuses raises."""
-    out = _launch_b5_in_clusters(args, alpha, b5_cluster_size(args[2].shape[1]))
+    args = (log_weights, log_liks, particles, uniforms)
+    out = _launch_b5_in_clusters(args, alpha, b5_cluster_size(particles.shape[1]), index)
     launch_b5.launches += 1
     return out
 
 
-def _launch_b5_in_clusters(args, alpha: float, cluster: int):
+def _launch_b5_in_clusters(args, alpha: float, cluster: int, index: int = None):
     """B5 in clusters of ``cluster`` blocks a row, uncounted: for the
     refused-cluster test and ``cluster_sweep.py``."""
-    return _launch("b5", args, alpha, cluster=cluster)
+    if index is None:
+        index = _check_cuda_inputs(*args)
+    return _launch(_Entries.b5 or _Entries.bind().b5, "B5", index, *args, alpha,
+                   cluster=cluster)
 
 
 launch_b1.launches = launch_b4.launches = launch_b5.launches = 0
@@ -282,13 +325,13 @@ def pf_update_and_resample(log_weights, log_liks, particles, uniforms, *,
     (N, M, D); alpha < 1 selects soft resampling. Returns (particles'
     (N, M, D), log_weights' (N, M), estimate (N, D)).
     """
-    tensors = (log_weights, log_liks, particles, uniforms)
-    if all(x.device.type == "cpu" for x in tensors):
-        return pf_update_and_resample_reference(*tensors, alpha=alpha)
-    _check_cuda_inputs(*tensors)
-    m = particles.shape[1]
-    if m > SMALL_M_MAX:
-        return launch_b5(*tensors, alpha=alpha)
+    if not particles.is_cuda and all(x.device.type == "cpu" for x in
+                                     (log_weights, log_liks, particles, uniforms)):
+        return pf_update_and_resample_reference(log_weights, log_liks, particles, uniforms,
+                                                alpha=alpha)
+    index = _check_cuda_inputs(log_weights, log_liks, particles, uniforms)
+    if particles.shape[1] > SMALL_M_MAX:
+        return launch_b5(log_weights, log_liks, particles, uniforms, alpha=alpha, index=index)
     if alpha < 1.0:
-        return launch_b4(*tensors, alpha=alpha)
-    return launch_b1(*tensors)
+        return launch_b4(log_weights, log_liks, particles, uniforms, alpha=alpha, index=index)
+    return launch_b1(log_weights, log_liks, particles, uniforms, index=index)

@@ -46,17 +46,27 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tail_inputs(n, m, d, device, seed=0):
+def _tail_inputs(n, m, d, device, seed=0, lead=0.0):
+    """Seeded tail inputs; `lead` > 0 raises one particle of row 0 that many
+    nats above the rest."""
     g = torch.Generator(device=device).manual_seed(seed)
     lw = torch.log_softmax(torch.randn(n, m, generator=g, device=device), dim=1)
     ll = torch.randn(n, m, generator=g, device=device)
+    ll[0, m // 3] += lead
     particles = torch.randn(n, m, d, generator=g, device=device)
     uniforms = torch.rand(n, m, generator=g, device=device)
     return lw, ll, particles, uniforms
 
 
+def _cases(*rows):
+    """pytest params of (n, m, d, alpha, kernel[, lead]) with the ids the
+    rows without a lead always had."""
+    return [pytest.param(*r[:5], r[5] if len(r) > 5 else 0.0,
+                         id="-".join(str(x) for x in r)) for r in rows]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m,d,alpha,kernel", [
+@pytest.mark.parametrize("n,m,d,alpha,kernel,lead", _cases(
     (16, 300, 3, 0.9, "launch_b4"), (16, 1, 2, 0.9, "launch_b4"),
     (16, 1025, 3, 1.0, "launch_b5"), (16, 2048, 3, 0.5, "launch_b5"),
     (4, 16384, 3, 1.0, "launch_b5"), (2, 20000, 3, 0.5, "launch_b5"),
@@ -64,9 +74,15 @@ def _tail_inputs(n, m, d, device, seed=0):
     (4, 16384, 3, 0.5, "launch_b5"), (2, 20000, 3, 1.0, "launch_b5"),
     (3, 4099, 8, 0.7, "launch_b5"),  # D = 8, a cluster of 3
     (2, 60000, 3, 1.0, "launch_b5"), (2, 60000, 3, 0.5, "launch_b5"),  # strided
-])
-def test_b4_b5_match_plain_version(cuda, n, m, d, alpha, kernel):
-    args = _tail_inputs(n, m, d, cuda, seed=m)
+    # B4's one-pass edges: ragged and whole warps, 1, 2 and 4 slots a
+    # thread, one and 512 rows, D = 8 at M = 1024, a particle 80 nats ahead.
+    (16, 31, 3, 0.9, "launch_b4"), (16, 32, 3, 0.9, "launch_b4"),
+    (16, 33, 3, 0.9, "launch_b4"), (16, 1023, 3, 0.5, "launch_b4"),
+    (1, 300, 3, 0.9, "launch_b4"), (512, 100, 3, 0.9, "launch_b4"),
+    (16, 1024, 8, 0.5, "launch_b4"), (16, 300, 3, 0.9, "launch_b4", 80.0),
+))
+def test_b4_b5_match_plain_version(cuda, n, m, d, alpha, kernel, lead):
+    args = _tail_inputs(n, m, d, cuda, seed=m, lead=lead)
     counter = getattr(pf_kernels, kernel)
     before = counter.launches
     kp, klw, kest = pf_kernels.pf_update_and_resample(*args, alpha=alpha)

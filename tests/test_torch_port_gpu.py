@@ -26,20 +26,35 @@ def cuda():
     return torch.device("cuda")
 
 
-def _b1_inputs(n, m, d, device, seed=0):
+def _b1_inputs(n, m, d, device, seed=0, lead=0.0):
+    """Seeded tail inputs; `lead` > 0 raises one particle of row 0 that many
+    nats above the rest (the CDF flat past it)."""
     g = torch.Generator(device=device).manual_seed(seed)
     lw = torch.log_softmax(torch.randn(n, m, generator=g, device=device), dim=1)
     ll = torch.randn(n, m, generator=g, device=device)
+    ll[0, m // 3] += lead
     particles = torch.randn(n, m, d, generator=g, device=device)
     uniforms = torch.rand(n, m, generator=g, device=device)
     return lw, ll, particles, uniforms
 
 
+# (n, m, d, lead): the main path's shapes, then the edges of the one-pass
+# kernel: whole and ragged warps (M = 31, 32, 33), 1, 2 and 4 slots a
+# thread (M = 256, 300, 1023, 1024), one and 512 rows, D = 8 at M = 1024,
+# and a row with one particle 80 nats ahead.
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m,d", [(16, 300, 3), (16, 100, 3), (2, 1, 2),
-                                   (4, 1000, 2), (4, 1024, 2)])
-def test_b1_kernel_matches_plain_version(cuda, n, m, d):
-    args = _b1_inputs(n, m, d, cuda)
+@pytest.mark.parametrize("n,m,d,lead", [
+    pytest.param(16, 300, 3, 0.0, id="16-300-3"), pytest.param(16, 100, 3, 0.0, id="16-100-3"),
+    pytest.param(2, 1, 2, 0.0, id="2-1-2"), pytest.param(4, 1000, 2, 0.0, id="4-1000-2"),
+    pytest.param(4, 1024, 2, 0.0, id="4-1024-2"),
+    pytest.param(16, 31, 3, 0.0, id="16-31-3"), pytest.param(16, 32, 3, 0.0, id="16-32-3"),
+    pytest.param(16, 33, 3, 0.0, id="16-33-3"), pytest.param(16, 256, 3, 0.0, id="16-256-3"),
+    pytest.param(16, 1023, 3, 0.0, id="16-1023-3"), pytest.param(1, 300, 3, 0.0, id="1-300-3"),
+    pytest.param(512, 100, 3, 0.0, id="512-100-3"), pytest.param(16, 1024, 8, 0.0, id="16-1024-8"),
+    pytest.param(16, 300, 3, 80.0, id="16-300-3-lead80"),
+])
+def test_b1_kernel_matches_plain_version(cuda, n, m, d, lead):
+    args = _b1_inputs(n, m, d, cuda, lead=lead)
     before = pf_kernels.launch_b1.launches
     kp, klw, kest = pf_kernels.pf_update_and_resample(*args)
     torch.cuda.synchronize()
@@ -50,18 +65,33 @@ def test_b1_kernel_matches_plain_version(cuda, n, m, d):
     assert torch.equal(kp[ok], rp[ok])
     torch.testing.assert_close(kest, rest, atol=1e-5, rtol=0)
     torch.testing.assert_close(klw, rlw, atol=0, rtol=0)
+    if lead:
+        assert torch.equal(kp[0][ok[0]], args[2][0, m // 3].expand(m, d)[ok[0]])
 
 
 @pytest.mark.gpu
 def test_b1_kernel_refuses_what_it_does_not_take(cuda):
-    lw, ll, particles, uniforms = _b1_inputs(2, 8, 3, cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        pf_kernels.pf_update_and_resample(lw.t().contiguous().t(), ll, particles, uniforms)
-    with pytest.raises(ValueError, match="float32"):
-        pf_kernels.pf_update_and_resample(lw.double(), ll, particles, uniforms)
-    wide = _b1_inputs(2, 8, 9, cuda)
-    with pytest.raises(ValueError, match="D <= 8"):
-        pf_kernels.pf_update_and_resample(*wide)
+    """B1 and B4 through the wrapper raise on every input they refuse
+    (non-contiguous, float64, D = 9, several devices, CPU particles),
+    count nothing then, and count each launch once."""
+    lw, ll, particles, uniforms = _b1_inputs(4, 40, 3, cuda)
+    refused = {
+        "contiguous": (lw.t().contiguous().t(), ll, particles, uniforms),
+        "float32": (lw, ll.double(), particles, uniforms),
+        "D <= 8": _b1_inputs(4, 40, 9, cuda),
+        "several devices": (lw, ll, particles, uniforms.cpu()),
+        "needs CUDA tensors": (lw.cpu(), ll, particles.cpu(), uniforms),
+    }
+    for alpha, count in ((1.0, pf_kernels.launch_b1), (0.9, pf_kernels.launch_b4)):
+        before = count.launches
+        for match, args in refused.items():
+            with pytest.raises(ValueError, match=match):
+                pf_kernels.pf_update_and_resample(*args, alpha=alpha)
+        assert count.launches == before
+        for _ in range(3):
+            pf_kernels.pf_update_and_resample(lw, ll, particles, uniforms, alpha=alpha)
+        torch.cuda.synchronize()
+        assert count.launches == before + 3
 
 
 @pytest.mark.gpu

@@ -40,11 +40,15 @@ TIE = 1e-6  # fp32 CDFs summed in different orders differ by ~1e-7
 LOOP_ATOL = 1e-4
 
 
-def _b1_inputs(n, m, d, seed=0):
+def _b1_inputs(n, m, d, seed=0, lead=0.0):
+    """Seeded tail inputs; `lead` > 0 raises one particle of row 0 that many
+    nats above the rest, so the others' probabilities are ~exp(-lead) or
+    below and the fp32 CDF is flat (a long run of equal entries) past it."""
     r = np.random.default_rng(seed)
     logits = r.normal(size=(n, m)).astype(np.float32)
     lw = (logits - np.log(np.exp(logits).sum(1, keepdims=True))).astype(np.float32)
     ll = r.normal(size=(n, m)).astype(np.float32)
+    ll[0, m // 3] += lead
     particles = r.normal(size=(n, m, d)).astype(np.float32)
     uniforms = r.uniform(size=(n, m)).astype(np.float32)
     return lw, ll, particles, uniforms
@@ -58,9 +62,17 @@ def _non_tie(cdf, uniforms):
     return pf_kernels.tie_gaps(cdf, uniforms).numpy() > TIE
 
 
-@pytest.mark.parametrize("n,m,d", [(3, 100, 3), (2, 1, 3), (2, 1024, 2)])
-def test_b1_reference_matches_pallas_kernel(n, m, d):
-    lw, ll, particles, uniforms = _b1_inputs(n, m, d)
+@pytest.mark.parametrize("n,m,d,lead", [
+    pytest.param(3, 100, 3, 0.0, id="3-100-3"),
+    pytest.param(2, 1, 3, 0.0, id="2-1-3"),
+    pytest.param(2, 1024, 2, 0.0, id="2-1024-2"),
+    # One particle 80 nats ahead: every draw off a tie is that slot, the
+    # first of the flat run of the CDF that it starts.
+    pytest.param(2, 300, 3, 80.0, id="2-300-3-lead80"),
+    pytest.param(2, 1024, 8, 0.0, id="2-1024-8"),
+])
+def test_b1_reference_matches_pallas_kernel(n, m, d, lead):
+    lw, ll, particles, uniforms = _b1_inputs(n, m, d, lead=lead)
     jp, jlw, jest = jax_b1(lw, ll, particles, uniforms, interpret=True)
     tp, tlw, test = pf_kernels.pf_update_and_resample_reference(
         *_t(lw, ll, particles, uniforms)
@@ -72,6 +84,9 @@ def test_b1_reference_matches_pallas_kernel(n, m, d):
     assert ok.mean() > 0.99
     np.testing.assert_allclose(np.asarray(jest), test.numpy(), atol=1e-6, rtol=0)
     np.testing.assert_allclose(np.asarray(jlw), tlw.numpy(), atol=1e-6, rtol=0)
+    if lead:
+        lead_row = np.broadcast_to(particles[0, m // 3], (m, d))
+        np.testing.assert_array_equal(tp.numpy()[0][ok[0]], lead_row[ok[0]])
 
 
 def test_b1_wrapper_takes_the_plain_version_on_cpu():

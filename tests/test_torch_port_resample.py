@@ -25,21 +25,33 @@ EST_ATOL = 1e-5
 LW_ATOL = 1e-5
 
 
-def _inputs(n, m, d=3, seed=0):
+def _inputs(n, m, d=3, seed=0, lead=0.0):
+    """Seeded tail inputs; `lead` > 0 raises one particle of row 0 that many
+    nats above the rest."""
     r = np.random.default_rng(seed)
     logits = r.normal(size=(n, m)).astype(np.float32)
     lw = (logits - np.log(np.exp(logits).sum(1, keepdims=True))).astype(np.float32)
     ll = r.normal(size=(n, m)).astype(np.float32)
+    ll[0, m // 3] += lead
     particles = r.normal(size=(n, m, d)).astype(np.float32)
     uniforms = r.uniform(size=(n, m)).astype(np.float32)
     return lw, ll, particles, uniforms
 
 
-# (n, m, alpha): B4 (JAX's _pf_soft_kernel), then B5's multinomial and soft
-# cases (JAX's _pf_kernel_chunked).
-@pytest.mark.parametrize("n,m,alpha", [(3, 100, 0.7), (2, 2048, 1.0), (2, 1536, 0.5)])
-def test_tail_reference_matches_pallas_kernel(n, m, alpha):
-    lw, ll, particles, uniforms = _inputs(n, m, seed=m)
+# (n, m, alpha, d, lead): B4 (JAX's _pf_soft_kernel), B5's multinomial and
+# soft cases (JAX's _pf_kernel_chunked), then B4's edges: one slot, a row
+# with one particle 80 nats ahead (the mixture's uniform part still draws
+# the others), D = 8 at the largest M.
+@pytest.mark.parametrize("n,m,alpha,d,lead", [
+    pytest.param(3, 100, 0.7, 3, 0.0, id="3-100-0.7"),
+    pytest.param(2, 2048, 1.0, 3, 0.0, id="2-2048-1.0"),
+    pytest.param(2, 1536, 0.5, 3, 0.0, id="2-1536-0.5"),
+    pytest.param(2, 1, 0.9, 3, 0.0, id="2-1-0.9"),
+    pytest.param(2, 300, 0.9, 3, 80.0, id="2-300-0.9-lead80"),
+    pytest.param(2, 1024, 0.5, 8, 0.0, id="2-1024-0.5-d8"),
+])
+def test_tail_reference_matches_pallas_kernel(n, m, alpha, d, lead):
+    lw, ll, particles, uniforms = _inputs(n, m, d, seed=m, lead=lead)
     jp, jlw, jest = jax_tail(lw, ll, particles, uniforms, alpha=alpha, interpret=True)
     args = [torch.from_numpy(a) for a in (lw, ll, particles, uniforms)]
     tp, tlw, test = pf_kernels.pf_update_and_resample_reference(*args, alpha=alpha)
