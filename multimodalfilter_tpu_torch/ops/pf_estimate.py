@@ -19,7 +19,6 @@ count kernel launches.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -27,6 +26,12 @@ from torch.autograd.function import once_differentiable
 from ._build import load_library
 
 MAX_D = 8
+# Batch rows (one warp each) a block of B2f and B2b. Of 1, 2, 4 and 8 on the
+# H100 at M = 30, four was within 0.04 us of the fastest at N = 32 (the
+# training curriculum's batch) in four sweeps; at N = 512 eight was up to
+# 0.1 us faster in three of them and 0.1 us slower in one (PERF.md;
+# chip_smoke.py times the sweep).
+ROWS_PER_BLOCK = 4
 
 
 def pf_update_estimate_reference(log_weights, log_liks, particles):
@@ -53,75 +58,107 @@ def pf_update_estimate_backward_reference(lwn, particles, est, g_lw, g_est):
     return g_s, p[:, :, None] * g_est[:, None, :]
 
 
-@functools.cache
-def _kernels():
-    lib = load_library("pf_estimate")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # Every pointer and the stream as c_void_p: without argtypes ctypes would
-    # pass a Python int as a 32-bit int and cut the pointer.
-    fwd, bwd = lib.pf_update_estimate_fwd_f32, lib.pf_update_estimate_bwd_f32
-    fwd.argtypes = [ptr] * 5 + [i32, i32, i32, ptr]
-    bwd.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+class _Entries:
+    """The C entry points of ``csrc/pf_estimate.cu``, bound once, at the
+    first launch (building the library if needed), and ``stream(index)``,
+    the current stream of a device as a raw handle."""
+
+    fwd = bwd = stream = None
+
+    @classmethod
+    def bind(cls):
+        cls.stream = torch._C._cuda_getCurrentRawStream
+        lib = load_library("pf_estimate")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        # Every pointer and the stream as c_void_p: without argtypes ctypes
+        # would pass a Python int as a 32-bit int and cut the pointer.
+        for key, symbol, pointers in (("fwd", "pf_update_estimate_fwd_f32", 5),
+                                      ("bwd", "pf_update_estimate_bwd_f32", 7)):
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = [ptr] * pointers + [i32] * 4 + [ptr], ctypes.c_int
+            setattr(cls, key, fn)
+        return cls
 
 
-def _check_cuda_inputs(rows, particles, vectors):
-    """`rows` (N, M) and `vectors` (N, D) beside `particles` (N, M, D):
-    fp32, contiguous, all on one CUDA device, 1 <= D <= MAX_D."""
+def _check_cuda_inputs(rows, particles, vectors) -> int:
+    """Raises unless `rows` (N, M) and `vectors` (N, D) beside `particles`
+    (N, M, D) are float32, contiguous and on one CUDA device, with
+    1 <= D <= MAX_D. Returns the device's index. One pass of cheap reads;
+    which rule failed is worked out only on failure."""
+    index = particles.get_device()
+    f32 = torch.float32
+    if (particles.is_cuda and particles.dim() == 3 and particles.dtype is f32
+            and particles.is_contiguous()):
+        n, m, d = particles.shape
+        ok = 1 <= d <= MAX_D and n >= 1 and m >= 1
+        for group, shape in ((rows, (n, m)), (vectors, (n, d))):
+            for x in group:
+                ok = (ok and x.get_device() == index and x.dtype is f32
+                      and x.is_contiguous() and x.shape == shape)
+        if ok:
+            return index
+    _refuse(rows, particles, vectors)
+
+
+def _refuse(rows, particles, vectors):
+    """Raises the error for inputs ``_check_cuda_inputs`` refused."""
     device = particles.device
     if device.type != "cuda":
         raise ValueError(f"B2 kernels need CUDA tensors, got {device}")
+    for x in (*rows, particles, *vectors):
+        if x.device != device:
+            raise ValueError(f"inputs on several devices: {x.device} and {device}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"B2 kernels take float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError("B2 kernels take contiguous tensors")
     if particles.ndim != 3:
         raise ValueError(f"particles must be (N, M, D), got {tuple(particles.shape)}")
     n, m, d = particles.shape
-    if not 1 <= d <= MAX_D or n < 1 or m < 1:
-        raise ValueError(f"B2 kernels take N, M >= 1 and 1 <= D <= {MAX_D}, "
-                         f"got {(n, m, d)}")
-    for shape, group in (((n, m), rows), ((n, m, d), (particles,)), ((n, d), vectors)):
+    for group, shape in ((rows, (n, m)), (vectors, (n, d))):
         for x in group:
-            if x.device != device:
-                raise ValueError(f"inputs on several devices: {x.device} and {device}")
-            if x.dtype != torch.float32:
-                raise ValueError(f"B2 kernels take float32, got {x.dtype}")
-            if not x.is_contiguous():
-                raise ValueError("B2 kernels take contiguous tensors")
             if tuple(x.shape) != shape:
                 raise ValueError(f"expected shape {shape}, got {tuple(x.shape)}")
-    return n, m, d
+    raise ValueError(f"B2 kernels take N, M >= 1 and 1 <= D <= {MAX_D}, got {(n, m, d)}")
+
+
+def _launch(entry, name, index, pointers, shape):
+    """Calls the C entry `entry` on the current stream of device `index`,
+    which the inputs (checked) lie on."""
+    if index == torch.cuda.current_device():
+        rc = entry(*pointers, *shape, ROWS_PER_BLOCK, _Entries.stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = entry(*pointers, *shape, ROWS_PER_BLOCK, _Entries.stream(index))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 def pf_update_estimate_fwd(log_weights, log_liks, particles):
     """Launch B2f on CUDA tensors. Returns (log_weights' (N, M),
     estimate (N, D))."""
-    n, m, d = _check_cuda_inputs((log_weights, log_liks), particles, ())
+    index = _check_cuda_inputs((log_weights, log_liks), particles, ())
     out_lw = torch.empty_like(log_weights)
-    est = torch.empty((n, d), dtype=particles.dtype, device=particles.device)
-    with torch.cuda.device(particles.device):
-        rc = _kernels()[0](
-            log_weights.data_ptr(), log_liks.data_ptr(), particles.data_ptr(),
-            out_lw.data_ptr(), est.data_ptr(), n, m, d,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"B2f kernel launch failed: cudaError {rc}")
+    est = particles.new_empty((particles.shape[0], particles.shape[2]))
+    _launch(_Entries.fwd or _Entries.bind().fwd, "B2f", index,
+            (log_weights.data_ptr(), log_liks.data_ptr(), particles.data_ptr(),
+             out_lw.data_ptr(), est.data_ptr()), particles.shape)
     pf_update_estimate_fwd.launches += 1
     return out_lw, est
 
 
 def pf_update_estimate_bwd(lwn, particles, est, g_lw, g_est):
-    """Launch B2b on CUDA tensors. Returns (g_s (N, M), g_x (N, M, D))."""
-    n, m, d = _check_cuda_inputs((lwn, g_lw), particles, (est, g_est))
+    """Launch B2b on CUDA tensors. `g_lw` None stands for zeros (an unused
+    lw'), which the kernel reads without a tensor. Returns (g_s (N, M),
+    g_x (N, M, D))."""
+    rows = (lwn,) if g_lw is None else (lwn, g_lw)
+    index = _check_cuda_inputs(rows, particles, (est, g_est))
     g_s = torch.empty_like(lwn)
     g_x = torch.empty_like(particles)
-    with torch.cuda.device(particles.device):
-        rc = _kernels()[1](
-            lwn.data_ptr(), particles.data_ptr(), est.data_ptr(), g_lw.data_ptr(),
-            g_est.data_ptr(), g_s.data_ptr(), g_x.data_ptr(), n, m, d,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"B2b kernel launch failed: cudaError {rc}")
+    _launch(_Entries.bwd or _Entries.bind().bwd, "B2b", index,
+            (lwn.data_ptr(), particles.data_ptr(), est.data_ptr(),
+             None if g_lw is None else g_lw.data_ptr(), g_est.data_ptr(),
+             g_s.data_ptr(), g_x.data_ptr()), particles.shape)
     pf_update_estimate_bwd.launches += 1
     return g_s, g_x
 
@@ -131,11 +168,13 @@ pf_update_estimate_bwd.launches = 0
 
 
 class _UpdateEstimate(torch.autograd.Function):
-    """B2f forward, B2b backward. Unused outputs (the last step's lw')
-    reach the backward as zeros (materialised grads, the default)."""
+    """B2f forward, B2b backward. Gradients are not materialised: the last
+    step's lw', which nothing reads, reaches the backward as None and the
+    kernel as a null pointer (zeros), with no fill and no copy."""
 
     @staticmethod
     def forward(ctx, log_weights, log_liks, particles):
+        ctx.set_materialize_grads(False)
         lwn, est = pf_update_estimate_fwd(log_weights, log_liks, particles)
         ctx.save_for_backward(lwn, particles, est)
         return lwn, est
@@ -143,9 +182,12 @@ class _UpdateEstimate(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g_lw, g_est):
+        if g_lw is None and g_est is None:
+            return None, None, None
         lwn, particles, est = ctx.saved_tensors
+        g_est = torch.zeros_like(est) if g_est is None else g_est.contiguous()
         g_s, g_x = pf_update_estimate_bwd(lwn, particles, est,
-                                          g_lw.contiguous(), g_est.contiguous())
+                                          None if g_lw is None else g_lw.contiguous(), g_est)
         return g_s, g_s, g_x
 
 

@@ -82,15 +82,26 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> None:
     module.load_state_dict(params_from_jax(tree), strict=True)
 
 
+# The standard deviation of a unit normal cut at +-2 (flax's
+# variance_scaling divides by it so that the cut draw keeps variance
+# scale / fan_in).
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_params(module: nn.Module, seed: int) -> None:
-    """Seeded init in the spirit of flax's defaults: lecun-normal weights
-    (std 1/sqrt(fan_in)), zero biases. Drawn on the CPU, so a seed gives the
-    same weights on every device."""
+    """Seeded init as flax's defaults: every weight drawn as
+    ``lecun_normal`` draws it (a normal cut at two standard deviations,
+    std sqrt(1/fan_in) / 0.8796..., so its variance is 1/fan_in and no
+    draw lies beyond 2.27/sqrt(fan_in)), zero biases. Drawn on the CPU, so a
+    seed gives the same weights on every device."""
     generator = torch.Generator().manual_seed(seed)
     for name, p in module.named_parameters():
         if name.endswith("bias"):
             p.zero_()
             continue
-        fan_in = p[0].numel()
-        p.copy_(torch.randn(p.shape, generator=generator) * fan_in ** -0.5)
+        std = p[0].numel() ** -0.5 / _TRUNCATED_NORMAL_STD
+        draw = torch.empty(p.shape)
+        torch.nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std,
+                                    generator=generator)
+        p.copy_(draw)

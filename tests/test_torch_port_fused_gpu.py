@@ -212,7 +212,10 @@ def _first_divergence(record, lls):
 
 
 def _b3_whole_loop_matches(cuda, n, m, t):
-    model = tdoor.DoorCrossmodalParticleFilter(device=cuda, seed=0)
+    # Seed 3: a model whose first step holds no tie in any case here. With
+    # one trajectory, a tie at step 0 leaves no step to compare; seeds 0, 1,
+    # 4 and 7 of 0-11 hold one at N=1 (M=300 or 512).
+    model = tdoor.DoorCrossmodalParticleFilter(device=cuda, seed=3)
     defn = dataclasses.replace(model.definition, num_particles_eval=m)
     ops, belief, uniforms = _door_inputs(defn, t, n, m, cuda, seed=m)
     with torch.no_grad():

@@ -22,7 +22,19 @@ from multimodalfilter_tpu_torch.types import Trajectory
 # fp32 sums over M in a warp-shuffle tree against torch's reductions, and
 # expf/logf against torch's exp/log; values are O(1-10) and M reaches 5000.
 ATOL = 1e-5
-SHAPES = [(32, 30, 3), (512, 30, 3), (16, 300, 3), (3, 1, 2), (4, 1000, 8), (2, 5000, 3)]
+# (N, M, D, lead): the main path's shapes; the edges of the kernels'
+# register slots (M <= 32, 64, 128, 256 slots a row, 1, 2, 4 and 8 a lane)
+# and of the looped instance above; every D <= 8; one row; a row whose slot
+# M // 3 leads the rest by `lead` nats.
+SHAPES = [(32, 30, 3, 0.0), (512, 30, 3, 0.0), (16, 300, 3, 0.0), (3, 1, 2, 0.0),
+          (4, 1000, 8, 0.0), (2, 5000, 3, 0.0),
+          (16, 31, 3, 0.0), (16, 32, 3, 0.0), (16, 33, 3, 0.0), (16, 64, 3, 0.0),
+          (16, 65, 3, 0.0), (16, 128, 3, 0.0), (16, 129, 3, 0.0), (16, 256, 3, 0.0),
+          (16, 257, 3, 0.0), (16, 256, 8, 0.0), (16, 257, 8, 0.0),
+          (8, 30, 1, 0.0), (8, 30, 2, 0.0), (8, 30, 4, 0.0), (8, 30, 5, 0.0),
+          (8, 30, 6, 0.0), (8, 30, 7, 0.0), (8, 30, 8, 0.0), (8, 100, 5, 0.0),
+          (1, 30, 3, 0.0), (1, 1, 1, 0.0), (512, 100, 3, 0.0),
+          (32, 30, 3, 80.0), (4, 1000, 3, 80.0)]
 
 
 @pytest.fixture
@@ -34,10 +46,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(n, m, d, device, seed=0):
+def _inputs(n, m, d, device, seed=0, lead=0.0):
     g = torch.Generator(device=device).manual_seed(seed)
     lw = torch.log_softmax(torch.randn(n, m, generator=g, device=device), dim=1)
     ll = torch.randn(n, m, generator=g, device=device)
+    ll[0, m // 3] += lead
     particles = torch.randn(n, m, d, generator=g, device=device)
     g_lw = torch.randn(n, m, generator=g, device=device)
     g_est = torch.randn(n, d, generator=g, device=device)
@@ -45,9 +58,9 @@ def _inputs(n, m, d, device, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m,d", SHAPES)
-def test_b2_kernels_match_plain_versions(cuda, n, m, d):
-    lw, ll, particles, g_lw, g_est = _inputs(n, m, d, cuda)
+@pytest.mark.parametrize("n,m,d,lead", SHAPES)
+def test_b2_kernels_match_plain_versions(cuda, n, m, d, lead):
+    lw, ll, particles, g_lw, g_est = _inputs(n, m, d, cuda, lead=lead)
     fwd, bwd = pf_estimate.pf_update_estimate_fwd, pf_estimate.pf_update_estimate_bwd
     before = (fwd.launches, bwd.launches)
     klw, kest = fwd(lw, ll, particles)
@@ -63,6 +76,19 @@ def test_b2_kernels_match_plain_versions(cuda, n, m, d):
     torch.testing.assert_close(kgs, rgs, atol=ATOL, rtol=0)
     torch.testing.assert_close(kgx, rgx, atol=ATOL, rtol=0)
     assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+
+    # An absent g_lw' (a null pointer to the kernel) is read as zeros.
+    args = [x.clone().requires_grad_() for x in (lw, ll, particles)]
+    with torch.enable_grad():
+        _, est = pf_estimate.pf_update_estimate(*args)
+        got = torch.autograd.grad((est * g_est).sum(), args)
+    torch.cuda.synchronize()
+    kest = est.detach()
+    zs, zx = pf_estimate.pf_update_estimate_backward_reference(
+        klw, particles, kest, torch.zeros_like(g_lw), g_est)
+    for a, b in zip(got, (zs, zs, zx)):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+    assert (fwd.launches, bwd.launches) == (before[0] + 2, before[1] + 2)
 
 
 @pytest.mark.gpu
