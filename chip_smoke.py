@@ -280,6 +280,41 @@ def phase_b1(pf_kernels, device) -> dict:
     return {"max_abs_err_est": worst_est, "index_mismatch_non_tie": 0}
 
 
+def b1_along_path(pf_kernels, calls) -> dict:
+    """B1 against its plain version on the inputs that a loop on the card
+    gave it, one (log_weights, log_liks, uniforms, particles, kwargs,
+    outputs) per call: no resampled particle off a tie from another source
+    slot, the estimate within EST_ATOL_KERNEL of its scale where that
+    exceeds 1, the log-weights equal. Each step is held on its own inputs,
+    so a wrong draw at one step cannot hide behind the divergence it causes
+    in the next."""
+    import torch
+
+    worst = {"calls": len(calls), "index_mismatch_non_tie": 0, "tie_slots": 0,
+             "mismatch_at_ties": 0, "max_abs_err_est": 0.0, "max_rel_err_est": 0.0,
+             "max_abs_err_lw": 0.0}
+    with torch.no_grad():
+        for lw, ll, u, particles, kwargs, (kp, klw, kest) in calls:
+            rp, rlw, rest = pf_kernels.pf_update_and_resample_reference(
+                lw, ll, particles, u, **kwargs)
+            tie = pf_kernels.draw_gaps(lw, ll, u) <= TIE
+            differs = (kp != rp).any(dim=-1)
+            err = float((kest - rest).abs().max())
+            worst["index_mismatch_non_tie"] += int((differs & ~tie).sum())
+            worst["tie_slots"] += int(tie.sum())
+            worst["mismatch_at_ties"] += int((differs & tie).sum())
+            worst["max_abs_err_est"] = max(worst["max_abs_err_est"], err)
+            worst["max_rel_err_est"] = max(worst["max_rel_err_est"],
+                                           err / max(1.0, float(rest.abs().max())))
+            worst["max_abs_err_lw"] = max(worst["max_abs_err_lw"],
+                                          float((klw - rlw).abs().max()))
+    check(worst["calls"] > 0, "B1 along the path: no calls recorded")
+    check(worst["index_mismatch_non_tie"] == 0, f"B1 along the path: {worst}")
+    check(worst["max_rel_err_est"] <= EST_ATOL_KERNEL, f"B1 along the path: {worst}")
+    check(worst["max_abs_err_lw"] == 0.0, f"B1 along the path: {worst}")
+    return worst
+
+
 def sequences(t, n, seed):
     import numpy as np
 
@@ -1267,35 +1302,27 @@ def b3_whole_loop(fused_step, pf_kernels, ops, belief, uniforms) -> dict:
     return out
 
 
-def phase_b3(door_models, fused_step, pf_kernels, device) -> dict:
-    """B3 against fused_forward_reference on the card. Step by step at the
-    main path's shapes (N=16, T=100, M=300, K=2): every step one B3 launch
-    with T=1 from the plain run's belief. The kernel's log-likelihoods must
-    agree with the plain trunks' (LL_RTOL of their scale); then, given the
-    kernel's own log-likelihoods, its estimate must agree with the plain
-    tail's within 1e-5 and its resampled particles with the plain tail's
-    draws off ties (PARTICLE_ATOL), both relative to their scale where it
-    exceeds 1. (At random weights the log-likelihoods reach magnitudes where
-    the two trunks' rounding moves the CDF by more than TIE, so the plain
-    run's own draws are not the yardstick; they are reported.) Then one
-    whole-loop launch, and other shapes."""
-    import dataclasses
-
+def b3_per_step(fused_step, pf_kernels, ops, belief, uniforms) -> dict:
+    """B3 step by step against fused_forward_reference: every step one
+    launch with T=1 from the plain run's belief. The kernel's
+    log-likelihoods must agree with the plain trunks' (LL_RTOL of their
+    scale); then, given the kernel's own log-likelihoods, its estimate must
+    agree with the plain tail's within EST_ATOL_KERNEL and its resampled
+    particles with the plain tail's draws off ties (PARTICLE_ATOL), both
+    relative to their scale where it exceeds 1."""
     import torch
 
-    model = door_models.DoorCrossmodalParticleFilter(device=device, seed=MAIN_SEED)
-    defn = dataclasses.replace(model.definition, num_particles_eval=M)
-    _, _, belief, _, uniforms, ops = door_sequences(defn, T, N, M, device, seed=50)
+    t_total, n, m = uniforms.shape
     worst = {"ll_rel": 0.0, "est": 0.0, "est_rel": 0.0, "particles_rel": 0.0,
              "plain_est": 0.0}
     ties = plain_flips = 0
     with torch.no_grad():
         b = belief
-        for i in range(T):
+        for i in range(t_total):
             record = []
             rb, rest = fused_step.fused_forward_reference(ops.step(i), b, uniforms[i:i + 1],
                                                           record=record)
-            lls = torch.empty((1, N, M), device=device)
+            lls = torch.empty((1, n, m), device=uniforms.device)
             kb, kest = fused_step.fused_forward_kernel(ops.step(i), b, uniforms[i:i + 1],
                                                        log_liks_out=lls)
             torch.cuda.synchronize()
@@ -1323,6 +1350,24 @@ def phase_b3(door_models, fused_step, pf_kernels, device) -> dict:
     check(worst["ll_rel"] <= LL_RTOL, f"B3 per-step log-likelihoods: {worst}")
     check(worst["est_rel"] <= EST_ATOL_KERNEL, f"B3 per-step estimates: {worst}")
     check(worst["particles_rel"] <= PARTICLE_ATOL, f"B3 per-step particles: {worst}")
+    return {"steps": t_total, "worst": worst, "tie_draws": ties,
+            "draws_moved_by_trunk_rounding": plain_flips}
+
+
+def phase_b3(door_models, fused_step, pf_kernels, device) -> dict:
+    """B3 against fused_forward_reference on the card. Step by step at the
+    main path's shapes (N=16, T=100, M=300, K=2; b3_per_step). (At random
+    weights the log-likelihoods reach magnitudes where the two trunks'
+    rounding moves the CDF by more than TIE, so the plain run's own draws
+    are not the yardstick; they are reported.) Then one whole-loop launch,
+    and other shapes."""
+    import dataclasses
+
+    model = door_models.DoorCrossmodalParticleFilter(device=device, seed=MAIN_SEED)
+    defn = dataclasses.replace(model.definition, num_particles_eval=M)
+    _, _, belief, _, uniforms, ops = door_sequences(defn, T, N, M, device, seed=50)
+    per_step = b3_per_step(fused_step, pf_kernels, ops, belief, uniforms)
+    worst = per_step["worst"]
     whole = b3_whole_loop(fused_step, pf_kernels, ops, belief, uniforms)
 
     # The cluster edges, and one launch of more trajectories than the card
@@ -1341,8 +1386,9 @@ def phase_b3(door_models, fused_step, pf_kernels, device) -> dict:
                        **b3_whole_loop(fused_step, pf_kernels, oops, ob, ou)})
     emit({"phase": "b3_vs_plain", "N": N, "T": T, "M": M, "K": 2, "tie": TIE,
           "est_atol": EST_ATOL_KERNEL, "particle_atol": PARTICLE_ATOL, "ll_rtol": LL_RTOL,
-          "loop_atol": B3_LOOP_ATOL, "per_step": worst, "per_step_tie_draws": ties,
-          "per_step_draws_moved_by_trunk_rounding": plain_flips,
+          "loop_atol": B3_LOOP_ATOL, "per_step": worst,
+          "per_step_tie_draws": per_step["tie_draws"],
+          "per_step_draws_moved_by_trunk_rounding": per_step["draws_moved_by_trunk_rounding"],
           "whole_loop": whole, "other_shapes": others})
     return {"max_abs_err_est": worst["est"], "defn": defn}
 
@@ -1452,6 +1498,424 @@ def phase_serving(door_models, fused_step, pf_kernels, pf_module, device) -> dic
                           "est_scale": scale, "atol": LOOP_ATOL},
           "times": rates, "profile": profile, "tf32": False})
     return {"launches": launches, "rates": rates}
+
+
+# The eval pipeline: the door eval set in memory (10 + 10 trajectories of
+# 120-149 steps, the synthetic files' default size, from these seeds), M =
+# EVAL_M particles, the model's weights from numpy_weights(EVAL_WEIGHTS_SEED)
+# (not the port's seeded init, whose truncated-normal draws change with the
+# torch version). At random weights most draws give dynamics that run to
+# inf or nan over the eval set, and then the comparisons below hold
+# nothing; seed 10's stay bounded (dynamics raw RMSEs about 2.1, 0.4, 2.7).
+EVAL_FILES = (("panda_door_pull_10.hdf5", 0), ("panda_door_push_10.hdf5", 1))
+EVAL_M = 300
+EVAL_WEIGHTS_SEED = 10
+EVAL_REPEATS = 20
+EVAL_DATASET_ARGS = {"use_vision": True, "use_proprioception": True, "use_haptics": True,
+                     "image_blackout_ratio": 0.0, "sequential_image_rate": 1}
+EVAL_BLACKOUT = 0.1
+# The noise-free dynamics rollout is deterministic: cuDNN and CPU GEMMs sum
+# in other orders through up to 148 steps, so its raw RMSEs (O(1-10)) agree
+# within 1e-5 of their scale.
+EVAL_DYNAMICS_RTOL = 1e-5
+# The eval CLI's result keys: the JAX CLI's, run_eval_stats over the door
+# metrics.
+EVAL_STAT_KEYS = sorted(f"{k}_{s}" for k in (
+    "theta_rmse_deg", "x_rmse_cm", "y_rmse_cm", "filter_steps_per_sec",
+    "filter_steps_per_sec_e2e") for s in ("mean", "std"))
+
+
+class Replay:
+    """Makes a facade's run_eval start every loop from `belief0` with the
+    given noise and uniforms (belief setter, eps_seq, uniforms_seq), and
+    records each loop's estimates and the launches of `counters` in it (each
+    set to 0 just before the loop and read just after)."""
+
+    def __init__(self, model, belief0, eps, uniforms, counters):
+        import torch
+
+        from multimodalfilter_tpu_torch.types import ParticleBelief
+
+        self.model, self.counters, self.runs = model, counters, []
+        device = model.device
+        belief0 = ParticleBelief(*(x.to(device) for x in belief0))
+        eps, uniforms = eps.to(device), uniforms.to(device)
+        real_loop = model.forward_loop
+
+        def init(**kwargs):
+            model.belief = ParticleBelief(*(x.clone() for x in belief0))
+
+        def loop(**kwargs):
+            for c in counters.values():
+                c.launches = 0
+            est = real_loop(**kwargs, eps_seq=eps, uniforms_seq=uniforms)
+            if est.is_cuda:
+                torch.cuda.synchronize()
+            self.runs.append((est, {k: c.launches for k, c in counters.items()}))
+            return est
+
+        model.initialize_beliefs, model.forward_loop = init, loop
+
+    def restore(self):
+        del self.model.initialize_beliefs, self.model.forward_loop
+
+
+def numpy_weights(module, seed: int) -> None:
+    """Random weights that are the same on every torch version: each weight
+    uniform on +-sqrt(3 / fan_in) (variance 1/fan_in, as the seeded init's
+    lecun_normal) from numpy's Generator, zero biases, loaded with
+    load_state_dict."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, p in module.state_dict().items():
+        if name.endswith("bias"):
+            state[name] = torch.zeros_like(p)
+            continue
+        limit = math.sqrt(3.0 / p[0].numel())
+        draw = rng.uniform(-limit, limit, size=tuple(p.shape)).astype(np.float32)
+        state[name] = torch.from_numpy(draw).to(p.device)
+    module.load_state_dict(state)
+
+
+def eval_set(cache, synthetic) -> None:
+    """The door eval set in memory under the current cache path."""
+    for name, seed in EVAL_FILES:
+        cache.keep_in_memory(name, synthetic.named_trajectories(name, seed=seed))
+
+
+def eval_profile(model, observations, controls, states) -> dict:
+    """Where run_eval's time goes: one warm per-step forward_loop over the
+    eval batch, as run_eval runs it, under torch.profiler (device busy
+    share, B1's share, device kernels a step, the largest kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    n, d = states.shape[1:]
+    mean = torch.from_numpy(states[0]).to(model.device)
+    cov = torch.eye(d, device=model.device).expand(n, d, d) * 0.1
+    obs_rest = {k: v[1:] for k, v in observations.items()}
+
+    def run():
+        model.initialize_beliefs(mean=mean, covariance=cov)
+        model.forward_loop(observations=obs_rest, controls=controls[1:]).cpu()
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    if not kernels:
+        return {"device_time": "not measured"}
+    by_name, busy_us = kernel_totals(kernels)
+    b1_us = sum(v[1] for k, v in by_name.items() if ROW_TAIL_KERNEL in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    steps = controls.shape[0] - 1
+    return {"N": n, "T": steps, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_busy_share": busy_us / wall_us, "b1_ms": b1_us / 1e3,
+            "device_kernels": len(kernels), "device_kernels_per_step": len(kernels) / steps,
+            "host_ms_per_step": wall_us / 1e3 / steps,
+            "top_kernels": [{"name": k[:80], "count": c, "ms": us / 1e3}
+                            for k, (c, us) in top]}
+
+
+def phase_eval_pipeline(door_models, fused_step, pf_kernels, pf_module, device) -> dict:
+    """The door eval pipeline on the card through its entry points:
+    DoorTask's eval set synthesised in memory, eval_helpers.configure,
+    run_eval (both modes, card against CPU), run_eval_stats (sequential and
+    batched), the fused route, a blackout run, and the eval CLI from a
+    checkpoint saved with Buddy."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from multimodalfilter_tpu_torch.crossmodal import _eval_batching, eval_helpers
+    from multimodalfilter_tpu_torch.crossmodal.tasks import DoorTask
+    from multimodalfilter_tpu_torch.data import cache, synthetic
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.scripts.door_task import eval_door
+    from multimodalfilter_tpu_torch.types import ParticleBelief
+
+    phase_start = time.perf_counter()
+    saved_env = {k: os.environ.get(k) for k in (
+        "MMF_TPU_SYNTHESIZE_DATA", "MMF_TPU_OFFLINE", "MMF_TPU_SYNTH_T", "MMF_TPU_SYNTH_TRAJ",
+        "MMF_TPU_EVAL_DEVICE_THROUGHPUT", "MMF_TPU_EVAL_BATCH_REPEATS",
+        "MMF_TPU_EVAL_BATCH_REPEATS_CAP", "MMF_TPU_FUSED_STEP")}
+    saved_cache, saved_cwd = cache._cache_path, os.getcwd()
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_eval_")
+    work = workdir.name
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    try:
+        for k in saved_env:
+            os.environ.pop(k, None)
+        os.environ["MMF_TPU_SYNTHESIZE_DATA"] = "1"
+        os.environ["MMF_TPU_OFFLINE"] = "1"
+        os.chdir(work)  # Buddy's default directories, for the CLI
+        cache.set_cache_path(os.path.join(work, "cache"))
+        t0 = time.perf_counter()
+        eval_set(cache, synthetic)
+        synth_s = time.perf_counter() - t0
+
+        cls = DoorTask.model_types["DoorCrossmodalParticleFilter"]
+        model, cpu_model = cls(device=device), cls(device="cpu")
+        numpy_weights(model.params, EVAL_WEIGHTS_SEED)
+        cpu_model.params.load_state_dict(model.params.state_dict())
+        for mdl in (model, cpu_model):
+            mdl.definition = dataclasses.replace(mdl.definition, num_particles_eval=EVAL_M)
+        buddy = Buddy("chip_smoke_eval", model, log_dir=os.path.join(work, "logs"),
+                      verbose=False)
+        cpu_buddy = Buddy("chip_smoke_eval_cpu", cpu_model,
+                          log_dir=os.path.join(work, "logs"), verbose=False)
+
+        def configure(b, **dataset_args):
+            eval_helpers.configure(buddy=b, task=DoorTask,
+                                   dataset_args={**EVAL_DATASET_ARGS, **dataset_args})
+
+        # get_eval_batch's host time: the first call loads, preprocesses,
+        # stacks and uploads the eval set; later calls hit the cache.
+        configure(buddy)
+        t0 = time.perf_counter()
+        states, obs, controls = _eval_batching.get_eval_batch()
+        torch.cuda.synchronize()
+        batch_first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _eval_batching.get_eval_batch()
+        batch_cached_ms = (time.perf_counter() - t0) * 1e3
+        t_len, n = states.shape[:2]
+        t1 = t_len - 1
+        check(n == 20 and 120 <= t_len < 150, f"eval set of {n} trajectories of {t_len} steps")
+
+        # (1) run_eval on the card against the same run_eval on the CPU: the
+        # same initial belief, noise and uniforms; the tail inputs and
+        # outputs of each step recorded (the CPU run's are the plain run's).
+        g = torch.Generator(device=device).manual_seed(80)
+        mean0 = torch.from_numpy(states[0]).to(device)
+        belief0 = (mean0[:, None, :] + 0.3 * torch.randn((n, EVAL_M, 3), generator=g,
+                                                          device=device),
+                   torch.full((n, EVAL_M), -math.log(EVAL_M), device=device))
+        eps = torch.randn((t1, n * EVAL_M, 3), generator=g, device=device)
+        uni = torch.rand((t1, n, EVAL_M), generator=g, device=device)
+        counters = {"b1": pf_kernels.launch_b1, "b3": fused_step.fused_forward_kernel}
+        records = {"cuda": [], "cpu": []}
+        into = ["cuda"]  # the run whose tail inputs are being recorded
+        real_tail = pf_module.pf_update_and_resample
+
+        def recording_tail(log_weights, log_liks, particles, uniforms, **kwargs):
+            out = real_tail(log_weights, log_liks, particles, uniforms, **kwargs)
+            records[into[0]].append((log_weights, log_liks, uniforms, particles, kwargs, out))
+            return out
+
+        os.environ["MMF_TPU_EVAL_DEVICE_THROUGHPUT"] = "0"
+        results = {}
+        pf_module.pf_update_and_resample = recording_tail
+        try:
+            for name, mdl, b in (("cuda", model, buddy), ("cpu", cpu_model, cpu_buddy)):
+                replay = Replay(mdl, belief0, eps.cpu() if name == "cpu" else eps, uni, counters)
+                configure(b)
+                try:
+                    into[0] = name
+                    with quiet:
+                        r = eval_helpers.run_eval()
+                finally:
+                    replay.restore()
+                results[name] = (r, replay.runs)
+                if name == "cuda":
+                    # Every B1 call of the card's loops against its plain
+                    # version on the same inputs, at the eval's shape.
+                    b1_eval = b1_along_path(pf_kernels, records["cuda"])
+                    records["cuda"] = records["cuda"][-t1:]  # the timed loop's
+        finally:
+            pf_module.pf_update_and_resample = real_tail
+        (gpu_r, gpu_runs), (cpu_r, cpu_runs) = results["cuda"], results["cpu"]
+        gpu_est, cpu_est = gpu_runs[-1][0], cpu_runs[-1][0]
+        for est, launches in gpu_runs:
+            check(launches == {"b1": t1, "b3": 0}, f"run_eval loop launches {launches}")
+        check(tuple(gpu_est.shape) == (t1, n, 3) and bool(torch.isfinite(gpu_est).all()),
+              "run_eval estimates on the card")
+        check(len(records["cpu"]) == t1, f"{len(records['cpu'])} CPU tail calls")
+        gpu_lls = torch.stack([r[1] for r in records["cuda"]]).cpu()
+        first = first_divergence(records["cpu"], gpu_lls, pf_kernels)
+        err, scale, steps = compare_through(gpu_est.cpu(), cpu_est, first)
+        check(steps > 0, "run_eval: the card's draws diverged from the CPU's at the first step")
+        check(err <= LOOP_ATOL * max(1.0, scale), f"run_eval card vs CPU estimates {err}")
+        no_tie = bool((first == t1).all())
+        rmse_err = float(np.abs(np.subtract(gpu_r["raw_rmse"], cpu_r["raw_rmse"])).max())
+        if no_tie:
+            check(rmse_err <= LOOP_ATOL * max(1.0, scale), f"run_eval RMSE gap {rmse_err}")
+
+        # (2) The dynamics rollout, card against CPU.
+        dyn = {}
+        for name, b in (("cuda", buddy), ("cpu", cpu_buddy)):
+            configure(b)
+            with quiet:
+                dyn[name] = eval_helpers.run_eval(eval_dynamics=True)
+        dyn_err = float(np.abs(np.subtract(dyn["cuda"]["raw_rmse"], dyn["cpu"]["raw_rmse"])).max())
+        dyn_scale = max(1.0, float(np.max(dyn["cpu"]["raw_rmse"])))
+        check(np.isfinite(dyn["cuda"]["raw_rmse"]).all(), "dynamics RMSE not finite")
+        check(dyn_err <= EVAL_DYNAMICS_RTOL * dyn_scale, f"dynamics RMSE gap {dyn_err}")
+
+        # (3) run_eval_stats, sequential (the chained timer off: it would run
+        # 20 loops a repeat) and batched (2 rollouts of batch 200, the chained
+        # timer on, at N=20).
+        stats = {}
+        for mode, batched, timer in (("sequential", "0", "0"), ("batched", "1", "1")):
+            os.environ["MMF_TPU_EVAL_BATCH_REPEATS"] = batched
+            os.environ["MMF_TPU_EVAL_DEVICE_THROUGHPUT"] = timer
+            configure(buddy)
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with quiet:
+                s = eval_helpers.run_eval_stats(repeats=EVAL_REPEATS)
+            torch.cuda.synchronize()
+            stats[mode] = {"wall_s": time.perf_counter() - t0, "chained_timer": timer == "1",
+                           "b1_launches": counters["b1"].launches, **s}
+            check(sorted(s) == EVAL_STAT_KEYS and all(np.isfinite(v) for v in s.values()),
+                  f"run_eval_stats ({mode}): {s}")
+            check(counters["b1"].launches > 0 and counters["b3"].launches == 0,
+                  f"run_eval_stats ({mode}) launches")
+
+        configure(buddy)
+        profile = eval_profile(model, obs, controls, states)
+
+        # (4) The fused route (MMF_TPU_FUSED_STEP=1): one B3 launch a loop,
+        # its estimates against the per-step route's through each
+        # trajectory's first divergent draw (B3's log-likelihoods against
+        # the per-step run's record).
+        os.environ["MMF_TPU_FUSED_STEP"] = "1"
+        try:
+            fused_model = cls(device=device)
+        finally:
+            del os.environ["MMF_TPU_FUSED_STEP"]
+        check(fused_model.definition.fused_step, "MMF_TPU_FUSED_STEP=1 did not set fused_step")
+        fused_model.params.load_state_dict(model.params.state_dict())
+        fused_model.definition = dataclasses.replace(fused_model.definition,
+                                                     num_particles_eval=EVAL_M)
+        os.environ["MMF_TPU_EVAL_DEVICE_THROUGHPUT"] = "1"
+        replay = Replay(fused_model, belief0, eps, uni, counters)
+        configure(Buddy("chip_smoke_eval_fused", fused_model,
+                        log_dir=os.path.join(work, "logs"), verbose=False))
+        try:
+            with quiet:
+                fused_r = eval_helpers.run_eval()
+        finally:
+            replay.restore()
+        for est, launches in replay.runs:
+            check(launches == {"b1": 0, "b3": 1}, f"fused run_eval loop launches {launches}")
+        check(fused_step.packing_report() is None, f"fused route fell back: "
+              f"{fused_step.packing_report()}")
+        fused_est = replay.runs[-1][0]
+        with torch.no_grad():
+            fdefn = fused_model.definition
+            features, ctrl = fdefn.encode_sequences({k: v[1:] for k, v in obs.items()},
+                                                    controls[1:])
+            ops = fused_step.pack_operands(fdefn, features, ctrl, eps, None, EVAL_M)
+            lls = torch.empty((t1, n, EVAL_M), device=device)
+            fused_step.fused_forward_kernel(ops, ParticleBelief(*belief0), uni,
+                                            log_liks_out=lls)
+            torch.cuda.synchronize()
+        ffirst = first_divergence(records["cuda"], lls, pf_kernels)
+        ferr, fscale, fsteps = compare_through(fused_est, gpu_est, ffirst)
+        check(fsteps > 0, "fused route: the draws diverged at the first step")
+        check(ferr <= LOOP_ATOL * max(1.0, fscale), f"fused vs per-step estimates {ferr}")
+        # B3 against its plain version on the eval's operands (N=20, M=300):
+        # step by step, each step on its own inputs, then one whole launch.
+        b3_eval = b3_per_step(fused_step, pf_kernels, ops, ParticleBelief(*belief0), uni)
+        b3_eval_whole = b3_whole_loop(fused_step, pf_kernels, ops, ParticleBelief(*belief0),
+                                      uni)
+
+        # (5) A blackout run: every call re-masks the cached images on the
+        # card; the zeroed share of frames lies within 4 sigma of the ratio.
+        os.environ["MMF_TPU_EVAL_DEVICE_THROUGHPUT"] = "0"
+        configure(buddy, image_blackout_ratio=EVAL_BLACKOUT)
+        _, bobs, _ = _eval_batching.get_eval_batch()
+        zeroed = float((bobs["image"].abs().amax(dim=(-2, -1)) == 0).float().mean())
+        frames = bobs["image"].shape[0] * bobs["image"].shape[1]
+        sigma = math.sqrt(EVAL_BLACKOUT * (1 - EVAL_BLACKOUT) / frames)
+        check(abs(zeroed - EVAL_BLACKOUT) <= 4 * sigma, f"blackout share {zeroed}")
+        with quiet:
+            blackout_r = eval_helpers.run_eval()
+        check(np.isfinite(blackout_r["raw_rmse"]).all(), "blackout run_eval RMSE")
+
+        # (6) The eval CLI at its defaults, from a checkpoint and metadata
+        # saved with Buddy under the working directory.
+        os.environ["MMF_TPU_EVAL_DEVICE_THROUGHPUT"] = "1"
+        saver = Buddy("chip_smoke_cli", model, verbose=False)
+        saver.set_metadata({"model_type": "DoorCrossmodalParticleFilter",
+                            "dataset_args": EVAL_DATASET_ARGS})
+        saver.save_checkpoint("eval")
+        t0 = time.perf_counter()
+        with quiet:
+            cli = eval_door.main(["--experiment-name", "chip_smoke_cli", "--save"],
+                                 cache_dir=cache.get_cache_path())
+        cli_s = time.perf_counter() - t0
+        loaded = eval_helpers.filter_model
+        check(loaded is not model and loaded.device == model.device, "CLI model")
+        saved_sd, loaded_sd = model.params.state_dict(), loaded.params.state_dict()
+        check(saved_sd.keys() == loaded_sd.keys()
+              and all(torch.equal(saved_sd[k], loaded_sd[k]) for k in saved_sd),
+              "the CLI's loaded parameters differ from the saved ones")
+        check(sorted(cli) == EVAL_STAT_KEYS, f"CLI result keys {sorted(cli)}")
+        with open(os.path.join(work, "metadata", "chip_smoke_cli.json")) as f:
+            check(json.load(f).get("eval_results_stats") == cli, "--save metadata")
+    finally:
+        os.chdir(saved_cwd)
+        workdir.cleanup()
+        cache._cache_path = saved_cache
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def rmse(r):
+        return {k: r[k] for k in ("raw_rmse", "theta_rmse_deg", "x_rmse_cm", "y_rmse_cm")}
+
+    def stat(s):
+        return {k: s[k] for k in ("wall_s", "chained_timer", "b1_launches",
+                                  "theta_rmse_deg_mean", "theta_rmse_deg_std",
+                                  "x_rmse_cm_mean", "x_rmse_cm_std",
+                                  "y_rmse_cm_mean", "y_rmse_cm_std",
+                                  "filter_steps_per_sec_mean",
+                                  "filter_steps_per_sec_e2e_mean")}
+
+    emit({"phase": "eval_pipeline", "model": "DoorCrossmodalParticleFilter", "units": 64,
+          "weights_seed": EVAL_WEIGHTS_SEED, "N": n, "T": t_len, "M": EVAL_M,
+          "synth_s": synth_s,
+          "get_eval_batch_host_ms": {"first": batch_first_ms, "cached": batch_cached_ms},
+          "run_eval": {"card": rmse(gpu_r), "cpu": rmse(cpu_r),
+                       "e2e_filter_steps_per_s": gpu_r["filter_steps_per_sec_e2e"],
+                       "b1_launches_per_loop": gpu_runs[-1][1]["b1"],
+                       "loops": len(gpu_runs), "trajectory_steps_compared": steps,
+                       "trajectories_never_diverged": int((first == t1).sum()),
+                       "max_abs_err_est": err, "est_scale": scale, "atol": LOOP_ATOL,
+                       "rmse_checked": no_tie, "max_abs_err_raw_rmse": rmse_err,
+                       "b1_vs_plain": b1_eval},
+          "eval_dynamics": {"card": rmse(dyn["cuda"]), "cpu": rmse(dyn["cpu"]),
+                            "max_abs_err_raw_rmse": dyn_err, "rtol": EVAL_DYNAMICS_RTOL},
+          "run_eval_stats": {mode: stat(s) for mode, s in stats.items()},
+          "profile": profile,
+          "fused": {"b3_launches_per_loop": replay.runs[-1][1]["b3"],
+                    "loops": len(replay.runs), "trajectory_steps_compared": fsteps,
+                    "max_abs_err_est": ferr, "est_scale": fscale,
+                    "b3_per_step": b3_eval, "b3_whole_loop": b3_eval_whole,
+                    "filter_steps_per_sec": fused_r["filter_steps_per_sec"],
+                    "filter_steps_per_sec_e2e": fused_r["filter_steps_per_sec_e2e"],
+                    **rmse(fused_r)},
+          "blackout": {"ratio": EVAL_BLACKOUT, "zeroed_share": zeroed, "frames": frames,
+                       "four_sigma": 4 * sigma, **rmse(blackout_r)},
+          "cli": {"wall_s": cli_s, "keys_match_jax_cli": True, "params_bitwise": True,
+                  "saved_eval_results_stats": True, **cli},
+          "wall_s": time.perf_counter() - phase_start, "tf32": False})
+    return {"b1_launches": gpu_runs[-1][1]["b1"], "b3_launches": replay.runs[-1][1]["b3"]}
 
 
 def serving_profile(model, device) -> dict:
@@ -1735,6 +2199,7 @@ def main(argv=None) -> int:
     b3_check = phase_b3(door_models, fused_step, pf_kernels, device)
     main_path = phase_main_path(door_models, pf_kernels, pf_module, device)
     serving = phase_serving(door_models, fused_step, pf_kernels, pf_module, device)
+    eval_pipeline = phase_eval_pipeline(door_models, fused_step, pf_kernels, pf_module, device)
     tail_paths = phase_tail_paths(door_models, pf_kernels, device)
     train_path = phase_train_path(
         door_models, (pf_kernels.launch_b1,
@@ -1760,6 +2225,7 @@ def main(argv=None) -> int:
         "source": "multimodalfilter_tpu_torch/csrc/pf_resample.cu",
         "replaces": "multimodalfilter_tpu/ops/pallas_pf.py:65",
         "launches": main_path["launches"],
+        "eval_pipeline_launches": eval_pipeline["b1_launches"],
         "max_abs_err": b1_check["max_abs_err_est"],
         "max_abs_err_est": b1_check["max_abs_err_est"],
         "index_mismatch_non_tie": b1_check["index_mismatch_non_tie"],
@@ -1788,6 +2254,7 @@ def main(argv=None) -> int:
         "source": "multimodalfilter_tpu_torch/csrc/pf_fused_step.cu",
         "replaces": "multimodalfilter_tpu/ops/pallas_fused_step.py:158",
         "launches": serving["launches"]["b3"],
+        "eval_pipeline_launches": eval_pipeline["b3_launches"],
         "max_abs_err": b3_check["max_abs_err_est"],
         "shape": [T, N, M, 3, 2],
         **{k: new_times["b3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

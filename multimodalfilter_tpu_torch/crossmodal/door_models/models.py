@@ -1,12 +1,14 @@
 """Door-task particle filters (port of the PF classes of
 ``crossmodal/door_models/models.py``). Each is a ``StatefulFilter`` over a
-``ParticleFilterDef`` and runs on ``device`` (default ``cuda``)."""
+``ParticleFilterDef``, runs on ``device`` (default ``cuda``) and registers
+itself as a ``--model-type`` choice by subclassing ``DoorTask.Filter``."""
 
 from __future__ import annotations
 
 from ..._device import Device, resolve_device
 from ...filtering import CrossmodalPFMeasurementDef, ParticleFilterDef
 from ...filtering.wrappers import StatefulFilter
+from ..tasks import DoorTask
 from . import _defs
 
 
@@ -25,7 +27,7 @@ def _two_modality_models(device):
     )
 
 
-class DoorParticleFilter(StatefulFilter):
+class DoorParticleFilter(StatefulFilter, DoorTask.Filter):
     """Plain PF: one measurement model over all modalities
     (30 particles train / 300 eval)."""
 
@@ -35,7 +37,7 @@ class DoorParticleFilter(StatefulFilter):
                          device=device, seed=seed)
 
 
-class DoorCrossmodalParticleFilter(StatefulFilter):
+class DoorCrossmodalParticleFilter(StatefulFilter, DoorTask.Filter):
     """PF over image-MM + pos/sensors-MM with a learned log-weight gate."""
 
     def __init__(self, know_image_blackout: bool = False, *,
@@ -55,14 +57,14 @@ class DoorCrossmodalParticleFilter(StatefulFilter):
         )
 
 
-class DoorCrossmodalParticleFilterSeq5(DoorCrossmodalParticleFilter):
+class DoorCrossmodalParticleFilterSeq5(DoorCrossmodalParticleFilter, DoorTask.Filter):
     """Blackout-aware crossmodal PF, for the seq5 dataset."""
 
     def __init__(self, *, device: Device = None, seed: int = 0):
         super().__init__(know_image_blackout=True, device=device, seed=seed)
 
 
-class DoorUnimodalParticleFilter(StatefulFilter):
+class DoorUnimodalParticleFilter(StatefulFilter, DoorTask.Filter):
     """Crossmodal PF measurement fusion with no gate (equal weights)."""
 
     def __init__(self, *, device: Device = None, seed: int = 0):

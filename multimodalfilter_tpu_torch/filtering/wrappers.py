@@ -4,8 +4,10 @@
 ``StatefulFilter`` holds a filter def, its parameters (``params``: the
 module tree whose state-dict keys are the flax param paths, loadable with
 ``weights.load_jax_params``), the current belief, a seeded
-``torch.Generator`` on the model's device, the enabled-modality mask and the
-set of frozen parameter paths. ``ModuleHandle`` is a view of a submodule
+``torch.Generator`` on the model's device, the enabled-modality mask, the
+set of frozen parameter paths and the set of loop configurations already
+run (``loop_cache_key``, which the eval's warm-up reads). ``ModuleHandle``
+is a view of a submodule
 (``filter_model.measurement_model.crossmodal_weight_model``): its dotted
 path and sub-def, which is what the train loops and ``freeze_module`` need.
 ``apply_serving_knobs`` reads the ``MMF_TPU_*`` serving knobs.
@@ -150,6 +152,9 @@ class StatefulFilter:
         self.generator.manual_seed(seed)
         self._training = True
         self._belief = None
+        # Loop configurations already run (loop_cache_key): the eval runs one
+        # discarded loop before it times a new one.
+        self._loops_run: set = set()
         self.frozen_paths: set = set()
         count = len(getattr(definition.measurement_model, "measurement_models", ()))
         self._enabled_models: Optional[List[bool]] = [True] * count if count else None
@@ -162,6 +167,10 @@ class StatefulFilter:
 
     def eval(self):
         return self.train(False)
+
+    @property
+    def training(self) -> bool:
+        return self._training
 
     @property
     def enabled_models(self) -> Optional[List[bool]]:
@@ -183,6 +192,39 @@ class StatefulFilter:
     def state_dim(self) -> int:
         return self.definition.state_dim
 
+    @property
+    def know_image_blackout(self) -> bool:
+        gate = getattr(self.definition.measurement_model, "crossmodal_weight_model", None)
+        return bool(gate is not None and gate.know_image_blackout)
+
+    @know_image_blackout.setter
+    def know_image_blackout(self, value: bool):
+        """Scripts flip this after construction
+        (``scripts/door_task/train_door.py:73``); defs are frozen, so the def is rebuilt with the flag. Its networks, and so
+        ``params``, are kept. A def with no gate ignores it, as in JAX."""
+        mm = self.definition.measurement_model
+        gate = getattr(mm, "crossmodal_weight_model", None)
+        if gate is not None:
+            self.definition = dataclasses.replace(
+                self.definition,
+                measurement_model=dataclasses.replace(
+                    mm, crossmodal_weight_model=dataclasses.replace(
+                        gate, know_image_blackout=value)),
+            )
+        self._loops_run.clear()
+
+    def num_parameters(self) -> int:
+        return sum(p.numel() for p in self.params.parameters())
+
+    def loop_cache_key(self, batch: int):
+        """The configuration the next ``forward_loop`` over `batch`
+        trajectories runs in: (mode, enabled modalities, batch, def). The
+        JAX facade keys its compiled loops so; here a key first run pays the
+        kernels' build and cuDNN's first calls, which the eval's warm-up
+        (``crossmodal/_eval_throughput.warm_up_loop``) keeps out of the
+        timed run."""
+        return (self._training, self._enabled_tuple, batch, id(self.definition))
+
     # -- submodule handles ------------------------------------------------------
     def __getattr__(self, name: str):
         # Only called when normal attribute lookup fails.
@@ -199,6 +241,10 @@ class StatefulFilter:
     def belief(self):
         return self._belief
 
+    @belief.setter
+    def belief(self, value):
+        self._belief = value
+
     def _to_device(self, x):
         """Numpy arrays or tensors (or a dict of them) -> fp32 on our device."""
         if isinstance(x, dict):
@@ -211,6 +257,22 @@ class StatefulFilter:
                 self._to_device(mean), self._to_device(covariance),
                 train=self._training, generator=self.generator,
             )
+
+    def forward(self, *, observations, controls, eps=None, uniforms=None):
+        """One filter step: observations dict of (N, ...), controls (N, C).
+        Returns the estimate (N, D) and keeps the new belief. Pre-drawn
+        `eps` (N*M, D) and `uniforms` (N, M) replace the generator's draws
+        (to replay a run)."""
+        if self._belief is None:
+            raise RuntimeError("Call initialize_beliefs first")
+        self._belief, estimate = self.definition.step(
+            self._belief, self._to_device(observations), self._to_device(controls),
+            train=self._training, enabled=self._enabled_tuple,
+            eps=None if eps is None else self._to_device(eps),
+            uniforms=None if uniforms is None else self._to_device(uniforms),
+            generator=self.generator,
+        )
+        return estimate
 
     def forward_loop(self, *, observations, controls, eps_seq=None,
                      uniforms_seq=None):
@@ -226,6 +288,7 @@ class StatefulFilter:
             uniforms_seq=None if uniforms_seq is None else self._to_device(uniforms_seq),
             generator=self.generator,
         )
+        self._loops_run.add(self.loop_cache_key(estimates.shape[1]))
         return estimates
 
 

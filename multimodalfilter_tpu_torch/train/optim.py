@@ -56,10 +56,31 @@ def apply_gradients(optimizer: torch.optim.Optimizer, module: nn.Module,
     optimizer.step()
 
 
+def load_optimizer_state(optimizer: torch.optim.Optimizer, saved) -> bool:
+    """Load a saved ``state_dict()`` (Adam's moments and step counts) into
+    `optimizer`, keeping its learning rates, as an optax state holds none.
+    Returns False, and leaves `optimizer` as it was, where the state does
+    not fit."""
+    learning_rates = [group["lr"] for group in optimizer.param_groups]
+    try:
+        optimizer.load_state_dict(saved)
+    except (KeyError, ValueError):
+        return False
+    for group, lr in zip(optimizer.param_groups, learning_rates):
+        group["lr"] = lr
+    return True
+
+
 def get_named_optimizer(buddy, name: str, module: nn.Module,
                         learning_rate: float = DEFAULT_LEARNING_RATE):
     """Fetch-or-create a named Adam over ALL of `module`'s parameters in the
-    buddy's clearable dict (as ``tx.init(root.params)`` does)."""
+    buddy's clearable dict (as ``tx.init(root.params)`` does). A new one
+    warm-starts from the state a loaded checkpoint stashed under its name
+    (``Buddy.load_checkpoint``); a state that does not fit is dropped."""
     if name not in buddy._optimizer_dict:
-        buddy._optimizer_dict[name] = make_optimizer(module.parameters(), learning_rate)
+        optimizer = make_optimizer(module.parameters(), learning_rate)
+        saved = getattr(buddy, "_pending_optimizer_state", {}).pop(name, None)
+        if saved is not None:
+            load_optimizer_state(optimizer, saved)
+        buddy._optimizer_dict[name] = optimizer
     return buddy._optimizer_dict[name]

@@ -1,5 +1,6 @@
 """Rules of the PyTorch port: it imports no JAX and nothing of the JAX
-package, its entry points never move to the CPU on their own, and its kernel
+package (its ``native`` host engine included) and needs no ``h5py`` to
+import, its entry points never move to the CPU on their own, and its kernel
 wrapper never falls back to the plain version for a non-CPU tensor."""
 
 import subprocess
@@ -30,6 +31,39 @@ def test_package_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+_WALK_WITHOUT_H5PY = (
+    "import importlib, pkgutil, sys\n"
+    "sys.modules['h5py'] = None\n"
+    "import multimodalfilter_tpu_torch as pkg\n"
+    "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+    "for name in names:\n"
+    "    importlib.import_module(name)\n"
+    "print('ok', len(names))\n"
+)
+
+
+def test_package_imports_without_h5py():
+    """The card's machine has no h5py: every module imports without it (the
+    data layer imports it only when a file is opened)."""
+    out = subprocess.run([sys.executable, "-c", _WALK_WITHOUT_H5PY], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+    assert int(out.stdout.split()[1]) > 40
+
+
+def test_package_imports_no_native_engine():
+    """The port keeps its own numpy copies of the JAX package's native host
+    engine (multimodalfilter_tpu.native): no module of the port names it.
+    The import walk of test_package_imports_no_jax, which bans the whole
+    JAX package, covers it at run time; this holds the sources to it."""
+    pkg = REPO / "multimodalfilter_tpu_torch"
+    offenders = [str(p.relative_to(REPO)) for p in pkg.rglob("*.py")
+                 if "multimodalfilter_tpu.native" in p.read_text()
+                 or "from multimodalfilter_tpu import" in p.read_text()]
+    assert offenders == []
 
 
 def test_model_without_device_raises_when_cuda_is_missing(monkeypatch):
