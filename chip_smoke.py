@@ -19,7 +19,14 @@ through its kernels, and times them:
   launch of B3, against the per-step path of the same model, with
   filter-steps/s at N=16 and the latency of a step at N=1 for both;
 - the per-step eval loop through B4 (soft resampling) and B5 (M=2048 and
-  M=16384).
+  M=16384);
+- the door train CLI (``train_door.main``): DoorCrossmodalParticleFilter
+  through the reference curriculum on 16 synthetic trajectories (checkpoints,
+  metadata, falling losses, frozen parts bit for bit, B1, B2f and B2b
+  launches counted from the datasets, and B1, B3, B2f and B2b held against
+  their plain versions on the trained model); ``--resume`` on the finished
+  run and on one interrupted after phase 2; and the LSTM baseline, card
+  against CPU and through its own curriculum.
 
 B3 is also held against its plain version step by step (T=100 launches of
 one step, each from the plain run's belief), over a whole loop, and at other
@@ -653,6 +660,28 @@ def b2_inputs(n, m, d, device, seed, lead=0.0):
     return lw, ll, particles, g_lw, g_est
 
 
+def max_err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def b2_fwd_errs(pf_estimate, args, out) -> list:
+    """B2f's outputs `out` (lw', est) on inputs `args` against its plain
+    version: each output's error."""
+    return list(map(max_err, out, pf_estimate.pf_update_estimate_reference(*args)))
+
+
+def b2_bwd_errs(pf_estimate, args, out) -> list:
+    """B2b's outputs `out` (g_s, g_x) on inputs `args` (lw', particles, est,
+    g_lw' or None, g_est) against its plain version (an absent g_lw' is
+    zeros): each output's error."""
+    import torch
+
+    lwn, particles, est, g_lw, g_est = args
+    g_lw = torch.zeros_like(lwn) if g_lw is None else g_lw
+    return list(map(max_err, out, pf_estimate.pf_update_estimate_backward_reference(
+        lwn, particles, est, g_lw, g_est)))
+
+
 def phase_b2(pf_estimate, device) -> dict:
     """B2f and B2b against their plain versions at every listed shape;
     torch.autograd.grad through the Function against the plain forward; and
@@ -661,9 +690,7 @@ def phase_b2(pf_estimate, device) -> dict:
     with that gradient zero, each launching B2b once."""
     import torch
 
-    def err(a, b):
-        return float((a - b).abs().max())
-
+    err = max_err
     fwd, bwd = pf_estimate.pf_update_estimate_fwd, pf_estimate.pf_update_estimate_bwd
     worst = {"fwd": 0.0, "bwd": 0.0, "autograd": 0.0, "absent": 0.0}
     results = []
@@ -674,8 +701,6 @@ def phase_b2(pf_estimate, device) -> dict:
         rlw, rest = pf_estimate.pf_update_estimate_reference(lw, ll, particles)
         kgs, kgx = bwd(rlw, particles, rest, g_lw, g_est)
         torch.cuda.synchronize()
-        rgs, rgx = pf_estimate.pf_update_estimate_backward_reference(
-            rlw, particles, rest, g_lw, g_est)
         grads = []
         for fn in (pf_estimate.pf_update_estimate,
                    pf_estimate.pf_update_estimate_reference):
@@ -700,8 +725,9 @@ def phase_b2(pf_estimate, device) -> dict:
                 g_est if used == "est" else torch.zeros_like(g_est))
             absent = max(absent, *(err(a, b) for a, b in zip(got, (zs, zs, zx))))
         row = {"shape": [n, m, d], "lead": lead,
-               "fwd": max(err(klw, rlw), err(kest, rest)),
-               "bwd": max(err(kgs, rgs), err(kgx, rgx)),
+               "fwd": max(b2_fwd_errs(pf_estimate, (lw, ll, particles), (klw, kest))),
+               "bwd": max(b2_bwd_errs(pf_estimate, (rlw, particles, rest, g_lw, g_est),
+                                      (kgs, kgx))),
                "autograd": max(err(a, b) for a, b in zip(*grads)),
                "absent": absent}
         for key in worst:
@@ -765,6 +791,50 @@ def one_step(model, batch, noise, loops, optim):
     return float(loss.detach()), grads, {k: v.cpu() for k, v in snapshot(model).items()}
 
 
+def step_card_vs_cpu(gpu_model, cpu_model, batch, noise, loops, optim, name) -> dict:
+    """One e2e step (one_step) of two models with the same weights, on the
+    card and on the CPU, from the same batch and noise: the loss within
+    STEP_LOSS_RTOL, every gradient within STEP_GRAD_RTOL of its scale, the
+    Adam updates within STEP_UPDATE_ATOL_LR where the gradient resolves
+    them, and no step beyond Adam's first-step bound. Emits the worst
+    entries as phase `name`."""
+    import torch
+
+    start = {k: v.cpu() for k, v in snapshot(gpu_model).items()}
+    g_loss, g_grads, g_params = one_step(gpu_model, batch, noise, loops, optim)
+    c_loss, c_grads, c_params = one_step(cpu_model, batch, noise, loops, optim)
+    loss_err = abs(g_loss - c_loss) / abs(c_loss)
+    check(loss_err <= STEP_LOSS_RTOL, f"step loss {g_loss} vs {c_loss}")
+    lr = optim.DEFAULT_LEARNING_RATE
+    grad_errs, update_errs = {}, {}
+    resolved = entries = 0
+    largest_step = 0.0
+    for k in c_grads:
+        gg, gc = g_grads[k], c_grads[k]
+        grad_errs[k] = float((gg - gc).abs().max()) / float(gc.abs().max())
+        dg, dc = g_params[k] - start[k], c_params[k] - start[k]
+        ulp = 2 * torch.finfo(torch.float32).eps * start[k].abs()
+        ok = (gc.abs() >= 1e-5) & (gc.abs() >= 2 * (gg - gc).abs())
+        excess = ((dg - dc).abs() - ulp)[ok]
+        update_errs[k] = max(0.0, float(excess.max()) / lr) if ok.any() else 0.0
+        resolved, entries = resolved + int(ok.sum()), entries + ok.numel()
+        largest_step = max(largest_step, float((dg.abs() - ulp).max()) / lr,
+                           float((dc.abs() - ulp).max()) / lr)
+    worst_grads = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:3]
+    worst_updates = sorted(update_errs.items(), key=lambda kv: -kv[1])[:3]
+    emit({"phase": name, "worst_grad_err_of_scale": worst_grads,
+          "worst_update_err_lr": worst_updates, "resolved_entries": resolved,
+          "entries": entries, "largest_step_lr": largest_step})
+    grad_err, update_err = worst_grads[0][1], worst_updates[0][1]
+    check(grad_err <= STEP_GRAD_RTOL, f"gradient {worst_grads[0]} of its scale")
+    check(update_err <= STEP_UPDATE_ATOL_LR, f"Adam update {worst_updates[0]} lr")
+    check(largest_step <= 1 + 1e-6, f"an Adam first step of {largest_step} lr")
+    return {"loss_gpu": g_loss, "loss_cpu": c_loss, "loss_rel_err": loss_err,
+            "max_grad_err_of_scale": grad_err, "max_update_err_lr": update_err,
+            "resolved_share": resolved / entries,
+            "tolerances": [STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_UPDATE_ATOL_LR]}
+
+
 def phase_train_path(door_models, kernels, device) -> dict:
     """The training path through train_helpers on the card: B2f and B2b
     launch once per filter step, B1 never; the loss is finite and every
@@ -812,37 +882,10 @@ def phase_train_path(door_models, kernels, device) -> dict:
     g = torch.Generator().manual_seed(11)
     noise = (torch.randn((TRAIN_B, TRAIN_M, 3), generator=g),
              torch.randn((TRAIN_L - 1, TRAIN_B * TRAIN_M, 3), generator=g))
-    start = {k: v.cpu() for k, v in snapshot(gpu_model).items()}
     f0 = b2f.launches
-    g_loss, g_grads, g_params = one_step(gpu_model, batch, noise, loops, optim)
+    card_vs_cpu = step_card_vs_cpu(gpu_model, cpu_model, batch, noise, loops, optim,
+                                   "train_step_card_vs_cpu")
     check(b2f.launches - f0 == TRAIN_L - 1, "the card's step did not run B2f")
-    c_loss, c_grads, c_params = one_step(cpu_model, batch, noise, loops, optim)
-    loss_err = abs(g_loss - c_loss) / abs(c_loss)
-    check(loss_err <= STEP_LOSS_RTOL, f"step loss {g_loss} vs {c_loss}")
-    lr = optim.DEFAULT_LEARNING_RATE
-    grad_errs, update_errs = {}, {}
-    resolved = entries = 0
-    largest_step = 0.0
-    for k in c_grads:
-        gg, gc = g_grads[k], c_grads[k]
-        grad_errs[k] = float((gg - gc).abs().max()) / float(gc.abs().max())
-        dg, dc = g_params[k] - start[k], c_params[k] - start[k]
-        ulp = 2 * torch.finfo(torch.float32).eps * start[k].abs()
-        ok = (gc.abs() >= 1e-5) & (gc.abs() >= 2 * (gg - gc).abs())
-        excess = ((dg - dc).abs() - ulp)[ok]
-        update_errs[k] = max(0.0, float(excess.max()) / lr) if ok.any() else 0.0
-        resolved, entries = resolved + int(ok.sum()), entries + ok.numel()
-        largest_step = max(largest_step, float((dg.abs() - ulp).max()) / lr,
-                           float((dc.abs() - ulp).max()) / lr)
-    worst_grads = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:3]
-    worst_updates = sorted(update_errs.items(), key=lambda kv: -kv[1])[:3]
-    emit({"phase": "train_step_card_vs_cpu", "worst_grad_err_of_scale": worst_grads,
-          "worst_update_err_lr": worst_updates, "resolved_entries": resolved,
-          "entries": entries, "largest_step_lr": largest_step})
-    grad_err, update_err = worst_grads[0][1], worst_updates[0][1]
-    check(grad_err <= STEP_GRAD_RTOL, f"gradient {worst_grads[0]} of its scale")
-    check(update_err <= STEP_UPDATE_ATOL_LR, f"Adam update {worst_updates[0]} lr")
-    check(largest_step <= 1 + 1e-6, f"an Adam first step of {largest_step} lr")
 
     # A step with the gate frozen, from a fresh optimizer: the gate stays.
     freeze_module(gpu_model.measurement_model.crossmodal_weight_model)
@@ -862,13 +905,7 @@ def phase_train_path(door_models, kernels, device) -> dict:
           "B": TRAIN_B, "L": TRAIN_L, "M": TRAIN_M, "windows": windows,
           "optimizer_steps": steps, "launches": launches, "epoch_loss": loss,
           "every_parameter_moved": True,
-          "card_vs_cpu_step": {"loss_gpu": g_loss, "loss_cpu": c_loss,
-                               "loss_rel_err": loss_err,
-                               "max_grad_err_of_scale": grad_err,
-                               "max_update_err_lr": update_err,
-                               "resolved_share": resolved / entries,
-                               "tolerances": [STEP_LOSS_RTOL, STEP_GRAD_RTOL,
-                                              STEP_UPDATE_ATOL_LR]},
+          "card_vs_cpu_step": card_vs_cpu,
           "frozen_gate_unchanged": True, "tf32": False})
     return {"model": model, "trajectories": trajs, "launches": launches}
 
@@ -1623,6 +1660,77 @@ def eval_profile(model, observations, controls, states) -> dict:
                             for k, (c, us) in top]}
 
 
+def run_eval_card_vs_cpu(eval_helpers, pf_kernels, pf_module, counters, models,
+                         belief0, eps, uniforms) -> dict:
+    """run_eval of the same model on the card and on the CPU (`models`:
+    {"cuda": (model, configure), "cpu": (model, configure)}, configure()
+    pointing eval_helpers at it), each loop from the same initial belief,
+    noise and uniforms (Replay), with the step tail's inputs and outputs
+    recorded. Holds every B1 call of the card's loops against its plain
+    version (b1_along_path), each card loop to T-1 B1 launches and no B3, and
+    the card's estimates to the CPU's within LOOP_ATOL of their scale up to
+    each trajectory's first tie (the raw RMSE too when no trajectory meets
+    one)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    t1, n = uniforms.shape[:2]
+    records = {"cuda": [], "cpu": []}
+    into = ["cuda"]  # the run whose tail inputs are being recorded
+    real_tail = pf_module.pf_update_and_resample
+
+    def recording_tail(log_weights, log_liks, particles, uniforms, **kwargs):
+        out = real_tail(log_weights, log_liks, particles, uniforms, **kwargs)
+        records[into[0]].append((log_weights, log_liks, uniforms, particles, kwargs, out))
+        return out
+
+    results = {}
+    pf_module.pf_update_and_resample = recording_tail
+    try:
+        for name in ("cuda", "cpu"):
+            mdl, configure = models[name]
+            replay = Replay(mdl, belief0, eps, uniforms, counters)
+            configure()
+            try:
+                into[0] = name
+                with contextlib.redirect_stdout(io.StringIO()):
+                    r = eval_helpers.run_eval()
+            finally:
+                replay.restore()
+            results[name] = (r, replay.runs)
+            if name == "cuda":
+                # Every B1 call of the card's loops against its plain
+                # version on the same inputs, at the eval's shape.
+                b1_eval = b1_along_path(pf_kernels, records["cuda"])
+                records["cuda"] = records["cuda"][-t1:]  # the timed loop's
+    finally:
+        pf_module.pf_update_and_resample = real_tail
+    (gpu_r, gpu_runs), (cpu_r, cpu_runs) = results["cuda"], results["cpu"]
+    gpu_est, cpu_est = gpu_runs[-1][0], cpu_runs[-1][0]
+    for est, launches in gpu_runs:
+        check(launches == {"b1": t1, "b3": 0}, f"run_eval loop launches {launches}")
+    check(tuple(gpu_est.shape) == (t1, n, 3) and bool(torch.isfinite(gpu_est).all()),
+          "run_eval estimates on the card")
+    check(len(records["cpu"]) == t1, f"{len(records['cpu'])} CPU tail calls")
+    gpu_lls = torch.stack([r[1] for r in records["cuda"]]).cpu()
+    first = first_divergence(records["cpu"], gpu_lls, pf_kernels)
+    err, scale, steps = compare_through(gpu_est.cpu(), cpu_est, first)
+    check(steps > 0, "run_eval: the card's draws diverged from the CPU's at the first step")
+    check(err <= LOOP_ATOL * max(1.0, scale), f"run_eval card vs CPU estimates {err}")
+    no_tie = bool((first == t1).all())
+    rmse_err = float(np.abs(np.subtract(gpu_r["raw_rmse"], cpu_r["raw_rmse"])).max())
+    if no_tie:
+        check(rmse_err <= LOOP_ATOL * max(1.0, scale), f"run_eval RMSE gap {rmse_err}")
+    return {"card": gpu_r, "cpu": cpu_r, "card_runs": gpu_runs, "card_tail": records["cuda"],
+            "first": first, "b1_vs_plain": b1_eval, "max_abs_err_est": err,
+            "est_scale": scale, "steps_compared": steps,
+            "trajectories_never_diverged": int((first == t1).sum()),
+            "rmse_checked": no_tie, "max_abs_err_raw_rmse": rmse_err}
+
+
 def phase_eval_pipeline(door_models, fused_step, pf_kernels, pf_module, device) -> dict:
     """The door eval pipeline on the card through its entry points:
     DoorTask's eval set synthesised in memory, eval_helpers.configure,
@@ -1704,52 +1812,17 @@ def phase_eval_pipeline(door_models, fused_step, pf_kernels, pf_module, device) 
         eps = torch.randn((t1, n * EVAL_M, 3), generator=g, device=device)
         uni = torch.rand((t1, n, EVAL_M), generator=g, device=device)
         counters = {"b1": pf_kernels.launch_b1, "b3": fused_step.fused_forward_kernel}
-        records = {"cuda": [], "cpu": []}
-        into = ["cuda"]  # the run whose tail inputs are being recorded
-        real_tail = pf_module.pf_update_and_resample
-
-        def recording_tail(log_weights, log_liks, particles, uniforms, **kwargs):
-            out = real_tail(log_weights, log_liks, particles, uniforms, **kwargs)
-            records[into[0]].append((log_weights, log_liks, uniforms, particles, kwargs, out))
-            return out
-
         os.environ["MMF_TPU_EVAL_DEVICE_THROUGHPUT"] = "0"
-        results = {}
-        pf_module.pf_update_and_resample = recording_tail
-        try:
-            for name, mdl, b in (("cuda", model, buddy), ("cpu", cpu_model, cpu_buddy)):
-                replay = Replay(mdl, belief0, eps.cpu() if name == "cpu" else eps, uni, counters)
-                configure(b)
-                try:
-                    into[0] = name
-                    with quiet:
-                        r = eval_helpers.run_eval()
-                finally:
-                    replay.restore()
-                results[name] = (r, replay.runs)
-                if name == "cuda":
-                    # Every B1 call of the card's loops against its plain
-                    # version on the same inputs, at the eval's shape.
-                    b1_eval = b1_along_path(pf_kernels, records["cuda"])
-                    records["cuda"] = records["cuda"][-t1:]  # the timed loop's
-        finally:
-            pf_module.pf_update_and_resample = real_tail
-        (gpu_r, gpu_runs), (cpu_r, cpu_runs) = results["cuda"], results["cpu"]
-        gpu_est, cpu_est = gpu_runs[-1][0], cpu_runs[-1][0]
-        for est, launches in gpu_runs:
-            check(launches == {"b1": t1, "b3": 0}, f"run_eval loop launches {launches}")
-        check(tuple(gpu_est.shape) == (t1, n, 3) and bool(torch.isfinite(gpu_est).all()),
-              "run_eval estimates on the card")
-        check(len(records["cpu"]) == t1, f"{len(records['cpu'])} CPU tail calls")
-        gpu_lls = torch.stack([r[1] for r in records["cuda"]]).cpu()
-        first = first_divergence(records["cpu"], gpu_lls, pf_kernels)
-        err, scale, steps = compare_through(gpu_est.cpu(), cpu_est, first)
-        check(steps > 0, "run_eval: the card's draws diverged from the CPU's at the first step")
-        check(err <= LOOP_ATOL * max(1.0, scale), f"run_eval card vs CPU estimates {err}")
-        no_tie = bool((first == t1).all())
-        rmse_err = float(np.abs(np.subtract(gpu_r["raw_rmse"], cpu_r["raw_rmse"])).max())
-        if no_tie:
-            check(rmse_err <= LOOP_ATOL * max(1.0, scale), f"run_eval RMSE gap {rmse_err}")
+        vs = run_eval_card_vs_cpu(
+            eval_helpers, pf_kernels, pf_module, counters,
+            {"cuda": (model, lambda: configure(buddy)),
+             "cpu": (cpu_model, lambda: configure(cpu_buddy))},
+            belief0, eps, uni)
+        gpu_r, cpu_r, gpu_runs = vs["card"], vs["cpu"], vs["card_runs"]
+        gpu_est, records, first = gpu_runs[-1][0], {"cuda": vs["card_tail"]}, vs["first"]
+        b1_eval = vs["b1_vs_plain"]
+        err, scale, steps = vs["max_abs_err_est"], vs["est_scale"], vs["steps_compared"]
+        no_tie, rmse_err = vs["rmse_checked"], vs["max_abs_err_raw_rmse"]
 
         # (2) The dynamics rollout, card against CPU.
         dyn = {}
@@ -1916,6 +1989,611 @@ def phase_eval_pipeline(door_models, fused_step, pf_kernels, pf_module, device) 
                   "saved_eval_results_stats": True, **cli},
           "wall_s": time.perf_counter() - phase_start, "tf32": False})
     return {"b1_launches": gpu_runs[-1][1]["b1"], "b3_launches": replay.runs[-1][1]["b3"]}
+
+
+# The door train CLI (train_door.main) on the card, with the JAX package's
+# smoke-train data knobs (MMF_TPU_SYNTHESIZE_DATA=1, MMF_TPU_SYNTH_TRAJ=8,
+# MMF_TPU_SYNTH_T=100): 8 synthetic trajectories of 100-124 steps a file,
+# so 16 train and 16 eval trajectories. Depth is cut only there; width, the
+# particle counts and the curriculum's epochs are the reference's. The sets
+# are held in memory from fixed seeds (a synthetic set's default seed is
+# Python's string hash, which changes from process to process), and the
+# eval's chained timer is off (MMF_TPU_EVAL_DEVICE_THROUGHPUT=0: it would
+# run 20 more loops at each log_eval; the eval phase times it).
+CLI_ENV = {"MMF_TPU_SYNTHESIZE_DATA": "1", "MMF_TPU_SYNTH_TRAJ": "8",
+           "MMF_TPU_SYNTH_T": "100", "MMF_TPU_OFFLINE": "1",
+           "MMF_TPU_EVAL_DEVICE_THROUGHPUT": "0"}
+CLI_FILES = (("panda_door_pull_100.hdf5", 2), ("panda_door_push_100.hdf5", 3),
+             ("panda_door_pull_10.hdf5", 0), ("panda_door_push_10.hdf5", 1))
+CLI_EXPERIMENT = "chip_smoke_train"
+CLI_PHASES = ("phase1", "phase2", "phase3", "phase4")
+# The crossmodal curriculum's train_e2e calls, (L, epochs) in order, by the
+# phase that makes them (scripts/door_task/train_door.py:140-195).
+CLI_E2E = {"phase2": [(4, 5), (8, 5), (16, 20)], "phase3": [(4, 5), (8, 5), (16, 20)],
+           "phase4": [(4, 5), (8, 5)] + [(16, 5)] * 4}
+CLI_KEYS = {"model_type", "dataset_args", "train_start_time", "commit_hash", "notes",
+            "train_end_time", "eval_results"}  # the JAX CLI's metadata
+GATE = "measurement_model.crossmodal_weight_model."
+DYNAMICS = "dynamics_model."
+LIKELIHOODS = "measurement_model.measurement_models."
+
+
+class CliProbe:
+    """Records what the train CLI runs: each call of the curriculum's
+    primitives (train_helpers.train_*, eval_helpers.log_eval and run_eval)
+    with its kwargs, wall time (the card synchronised) and the model's
+    enabled modalities; each checkpoint saved (label, time) and each restore
+    (label, the buddy's optimizer steps after it)."""
+
+    TRAIN = ("train_e2e", "train_pf_dynamics_single_step", "train_pf_dynamics_recurrent",
+             "train_pf_measurement")
+
+    def __init__(self, train_helpers, eval_helpers, buddy_cls):
+        import torch
+
+        self.calls, self.saves, self.restores, self._undo = [], [], [], []
+
+        def wrap(owner, name, record):
+            real = getattr(owner, name)
+
+            def wrapped(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*args, **kwargs)
+                torch.cuda.synchronize()
+                record(args, kwargs, t0, time.perf_counter())
+                return out
+
+            setattr(owner, name, wrapped)
+            self._undo.append((owner, name, real))
+
+        for module, names in ((train_helpers, self.TRAIN),
+                              (eval_helpers, ("log_eval", "run_eval"))):
+            for name in names:
+                wrap(module, name, lambda a, kw, t0, t1, name=name, m=module: self.calls.append(
+                    {"name": name, "kwargs": kw, "t0": t0, "s": t1 - t0,
+                     "enabled": m.filter_model._enabled_tuple}))
+        wrap(buddy_cls, "save_checkpoint", lambda a, kw, t0, t1: self.saves.append(
+            (kw.get("label", a[1] if len(a) > 1 else None), t1)))
+        wrap(buddy_cls, "load_checkpoint", lambda a, kw, t0, t1: self.restores.append(
+            (kw.get("label", a[1] if len(a) > 1 else None), a[0].optimizer_steps)))
+
+    def restore(self):
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+
+    def of(self, name):
+        return [c for c in self.calls if c["name"] == name]
+
+
+class cli_workspace:
+    """A temporary working directory (Buddy's directories) with a dataset
+    cache under it, CLI_ENV set and the door sets of CLI_FILES in memory;
+    the working directory, cache path and environment restored after."""
+
+    def __enter__(self):
+        import os
+
+        from multimodalfilter_tpu_torch.data import cache, synthetic
+
+        self._cache, self._cwd = cache, os.getcwd()
+        self._saved_cache = cache._cache_path
+        self._env = {k: os.environ.get(k) for k in (*CLI_ENV, "MMF_TPU_FUSED_STEP",
+                                                    "MMF_TPU_EVAL_BATCH_REPEATS")}
+        self._dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+        self.path = self._dir.name
+        self.cache_dir = os.path.join(self.path, "cache")
+        for k in self._env:
+            os.environ.pop(k, None)
+        os.environ.update(CLI_ENV)
+        os.chdir(self.path)
+        cache.set_cache_path(self.cache_dir)
+        for name, seed in CLI_FILES:
+            cache.keep_in_memory(name, synthetic.named_trajectories(name, seed=seed))
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        os.chdir(self._cwd)
+        self._dir.cleanup()
+        self._cache._cache_path = self._saved_cache
+        for k, v in self._env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def run_cli(train_door, probe_modules, argv, work) -> tuple:
+    """train_door.main(argv) in `work`, quiet, under a CliProbe; returns
+    (the eval results, the probe, wall s)."""
+    import contextlib
+    import io
+
+    probe = CliProbe(*probe_modules)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            results = train_door.main(argv, cache_dir=work.cache_dir)
+    finally:
+        probe.restore()
+        sys.excepthook = sys.__excepthook__  # main installs pdb_safety_net's
+    return results, probe, time.perf_counter() - t0
+
+
+def metric_series(work, experiment) -> dict:
+    """{name: [values in order]} of the experiment's metrics.jsonl."""
+    import os
+
+    series = {}
+    with open(os.path.join(work.path, "logs", experiment, "metrics.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            series.setdefault(rec["name"], []).append(rec["value"])
+    return series
+
+
+def checkpoint_params(work, experiment, label) -> dict:
+    """A checkpoint of the CLI's run: {"params", "steps", "optimizers"}."""
+    import os
+
+    import torch
+
+    path = os.path.join(work.path, "checkpoints", experiment, f"{label}.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def same_under(a: dict, b: dict, prefix: str) -> bool:
+    """Whether the parameters under `prefix` are equal bit for bit."""
+    import torch
+
+    keys = [k for k in a if k.startswith(prefix)]
+    return bool(keys) and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in keys)
+
+
+def e2e_launches(calls, trajs) -> int:
+    """B2f (and B2b) launches that train_e2e calls make: per call (windows //
+    B) optimizer steps a epoch, L-1 launches each, windows counted from the
+    training set."""
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset
+
+    total = 0
+    for c in calls:
+        kw = c["kwargs"]
+        windows = len(SubsequenceDataset(trajs, kw["subsequence_length"]))
+        total += (windows // kw["batch_size"]) * kw["epochs"] * (kw["subsequence_length"] - 1)
+    return total
+
+
+def cli_train_rates(calls, trajs) -> dict:
+    """Train filter-steps/s of the run's train_e2e calls by L: optimizer
+    steps * B * (L-1) over their wall time."""
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset
+
+    by_l = {}
+    for c in calls:
+        kw = c["kwargs"]
+        length, b = kw["subsequence_length"], kw["batch_size"]
+        steps = len(SubsequenceDataset(trajs, length)) // b * kw["epochs"]
+        acc = by_l.setdefault(length, [0, 0.0])
+        acc[0] += steps * b * (length - 1)
+        acc[1] += c["s"]
+    return {f"L{length}": fs / s for length, (fs, s) in sorted(by_l.items())}
+
+
+def phase_walls(probe, labels) -> dict:
+    """Wall s of each curriculum phase: from its first call (the first
+    phase) or the previous phase's save to its own save."""
+    ends = [t for _, t in probe.saves]
+    starts = [min(c["t0"] for c in probe.calls)] + ends[:-1]
+    return {label: end - start for label, end, start in zip(labels, ends, starts)}
+
+
+def eval_loops(probe) -> int:
+    """Eval loops the run made: one a run_eval (log_eval runs one), and one
+    discarded warm-up the first time each enabled-modality configuration
+    runs (eval_helpers' warm_up_loop; the model and the eval batch are the
+    same throughout)."""
+    runs = probe.of("run_eval")
+    return len(runs) + len({c["enabled"] for c in runs})
+
+
+def b2_along_step(pf_estimate, model, batch, loops) -> dict:
+    """Every B2f and B2b call of one e2e step (the loss and its backward on
+    `batch`, no optimizer step) against its plain version on that call's
+    inputs (b2_fwd_errs, b2_bwd_errs). Each output is held on its own: within
+    B2_ATOL, or B2_ATOL of its own scale where that exceeds 1 (a trained
+    model's log-weights may reach magnitudes where one fp32 ulp is above
+    B2_ATOL), and each output's worst reading is reported."""
+    import torch
+
+    calls = {"fwd": [], "bwd": []}
+    real = {k: getattr(pf_estimate, f"pf_update_estimate_{k}") for k in calls}
+
+    class Recorder:
+        """Stands in for a wrapper under its module name: records each call,
+        and keeps the wrapper's launch count (which the wrapper increments
+        through that name)."""
+
+        def __init__(self, kind):
+            self.kind = kind
+
+        def __call__(self, *args):
+            out = real[self.kind](*args)
+            calls[self.kind].append((args, out))
+            return out
+
+        @property
+        def launches(self):
+            return real[self.kind].launches
+
+        @launches.setter
+        def launches(self, value):
+            real[self.kind].launches = value
+
+    for kind in calls:
+        setattr(pf_estimate, f"pf_update_estimate_{kind}", Recorder(kind))
+    try:
+        with torch.enable_grad():
+            loss = loops.e2e_loss(model.definition, loops._to_device(batch, model.device),
+                                  enabled=model._enabled_tuple, initial_cov_scale=0.1,
+                                  generator=model.generator)
+            loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        for kind in calls:
+            setattr(pf_estimate, f"pf_update_estimate_{kind}", real[kind])
+        model.params.zero_grad(set_to_none=True)
+    def worst(errs_of, kind, names):
+        """Each output's largest error over the calls of `kind`, over its own
+        scale where that exceeds 1."""
+        per_call = [[e / max(1.0, float(x.abs().max()))
+                     for e, x in zip(errs_of(pf_estimate, args, out), out)]
+                    for args, out in calls[kind]]
+        return {name: max(col) for name, col in zip(names, zip(*per_call))}
+
+    with torch.no_grad():
+        errs = {**worst(b2_fwd_errs, "fwd", ("lw_err", "est_err")),
+                **worst(b2_bwd_errs, "bwd", ("g_s_err", "g_x_err"))}
+    out = {"fwd_calls": len(calls["fwd"]), "bwd_calls": len(calls["bwd"]), **errs,
+           "atol_of_own_scale": B2_ATOL}
+    length = batch["states"].shape[1]
+    check(out["fwd_calls"] == out["bwd_calls"] == length - 1, f"B2 along a step: {out}")
+    check(all(e <= B2_ATOL for e in errs.values()), f"B2 along a step: {out}")
+    return out
+
+
+def eval_rmse(eval_helpers, task, model, work, name) -> dict:
+    """run_eval of `model` over the CLI's eval set (quiet; an untrained
+    model's estimates may run to inf, and its RMSE with them)."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from multimodalfilter_tpu_torch.experiments import Buddy
+
+    eval_helpers.configure(buddy=Buddy(name, model, log_dir=os.path.join(work.path, "logs"),
+                                       verbose=False),
+                           task=task, dataset_args=dict(EVAL_DATASET_ARGS))
+    with contextlib.redirect_stdout(io.StringIO()), np.errstate(over="ignore"):
+        r = eval_helpers.run_eval()
+    return {k: r[k] for k in ("raw_rmse", "theta_rmse_deg", "x_rmse_cm", "y_rmse_cm",
+                              "filter_steps_per_sec_e2e")}
+
+
+def phase_train_cli(fused_step, pf_kernels, pf_estimate, pf_module, device, work) -> dict:
+    """The door train CLI on the card: train_door.main trains
+    DoorCrossmodalParticleFilter through the reference curriculum
+    (ResumableCurriculum, phases 1-4) and evaluates it. Holds the
+    checkpoints and metadata, the losses (finite; the single-step dynamics
+    and both measurement pretrainings falling), the frozen parts bit for
+    bit, the launches of B1, B2f and B2b against counts from the datasets,
+    and every kernel against its plain version on the trained model."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from multimodalfilter_tpu_torch.crossmodal import (
+        _eval_batching,
+        eval_helpers,
+        train_helpers,
+    )
+    from multimodalfilter_tpu_torch.crossmodal.tasks import DoorTask
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.scripts.door_task import train_door
+    from multimodalfilter_tpu_torch.train import loops
+    from multimodalfilter_tpu_torch.types import ParticleBelief
+
+    cls = DoorTask.model_types["DoorCrossmodalParticleFilter"]
+    counters = {"b1": pf_kernels.launch_b1, "b2f": pf_estimate.pf_update_estimate_fwd,
+                "b2b": pf_estimate.pf_update_estimate_bwd,
+                "b3": fused_step.fused_forward_kernel}
+    init = {k: v.cpu() for k, v in cls(device=device).params.state_dict().items()}
+    untrained = eval_rmse(eval_helpers, DoorTask, cls(device=device), work, "untrained")
+
+    for c in counters.values():
+        c.launches = 0
+    results, probe, wall_s = run_cli(
+        train_door, (train_helpers, eval_helpers, Buddy),
+        ["--model-type", "DoorCrossmodalParticleFilter", "--experiment-name",
+         CLI_EXPERIMENT], work)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    model, trajs = eval_helpers.filter_model, train_helpers.trajectories
+
+    # Checkpoints, metadata, losses.
+    check([label for label, _ in probe.saves] == list(CLI_PHASES),
+          f"checkpoints {probe.saves}")
+    ckpt = {label: checkpoint_params(work, CLI_EXPERIMENT, label)["params"]
+            for label in CLI_PHASES}
+    with open(os.path.join(work.path, "metadata", f"{CLI_EXPERIMENT}.json")) as f:
+        meta = json.load(f)
+    check(set(meta) == CLI_KEYS, f"metadata keys {sorted(meta)}")
+    check(all(np.isfinite(meta["eval_results"][k]).all() for k in
+              ("raw_rmse", "theta_rmse_deg", "x_rmse_cm", "y_rmse_cm")),
+          f"eval results {meta['eval_results']}")
+    series = metric_series(work, CLI_EXPERIMENT)
+    check(all(np.isfinite(v).all() for v in series.values()), "a non-finite loss")
+    single = series["train/dynamics_single_step"]
+    passes = 3 * 10  # train_pf_measurement(epochs=3): 10 passes an epoch
+    meas = series["train/pf_measurement"]
+    check(len(single) == 5 and len(meas) == 2 * passes, f"loss series {len(single)}, {len(meas)}")
+    falling = {"dynamics_single_step": (single[0], single[-1]),
+               "measurement_image": (meas[0], meas[passes - 1]),
+               "measurement_pos_sensors": (meas[passes], meas[-1])}
+    for name, (first, last) in falling.items():
+        check(last < first, f"{name} loss did not fall: {first} -> {last}")
+
+    # Frozen parts, bit for bit.
+    frozen = {
+        "gate_is_init_in_phase1_to_3": all(same_under(ckpt[p], init, GATE)
+                                           for p in CLI_PHASES[:3]),
+        "gate_moved_in_phase4": not same_under(ckpt["phase4"], init, GATE),
+        "dynamics_same_in_phase1_to_4": all(same_under(ckpt[p], ckpt["phase1"], DYNAMICS)
+                                            for p in CLI_PHASES[1:]),
+        "likelihoods_same_in_phase3_and_4": same_under(ckpt["phase4"], ckpt["phase3"],
+                                                       LIKELIHOODS),
+    }
+    check(all(frozen.values()), f"frozen parts {frozen}")
+
+    # Launches, counted from the datasets and the curriculum.
+    e2e = probe.of("train_e2e")
+    check([(c["kwargs"]["subsequence_length"], c["kwargs"]["epochs"]) for c in e2e]
+          == sum(CLI_E2E.values(), []), "train_e2e calls")
+    t_eval = _eval_batching.get_eval_batch()[0].shape[0]
+    want = {"b1": eval_loops(probe) * (t_eval - 1), "b2f": e2e_launches(e2e, trajs),
+            "b2b": e2e_launches(e2e, trajs), "b3": 0}
+    check(launches == want, f"launches {launches}, expected {want}")
+
+    # Every kernel on the trained model: B1 along a run_eval on the card,
+    # which is held against the CPU; B3 step by step on its operands; B2f
+    # and B2b along one e2e step at L=16.
+    cpu_model = cls(device="cpu")
+    cpu_model.params.load_state_dict(model.params.state_dict())
+    states, obs, controls = _eval_batching.get_eval_batch()
+    t1, n, m = states.shape[0] - 1, states.shape[1], model.definition.num_particles_eval
+    g = torch.Generator(device=device).manual_seed(81)
+    mean0 = torch.from_numpy(states[0]).to(device)
+    belief0 = (mean0[:, None, :] + 0.3 * torch.randn((n, m, 3), generator=g, device=device),
+               torch.full((n, m), -math.log(m), device=device))
+    eps = torch.randn((t1, n * m, 3), generator=g, device=device)
+    uni = torch.rand((t1, n, m), generator=g, device=device)
+    buddies = {name: Buddy(f"chip_smoke_trained_{name}", mdl,
+                           log_dir=os.path.join(work.path, "logs"), verbose=False)
+               for name, mdl in (("cuda", model), ("cpu", cpu_model))}
+
+    def configure(name):
+        return lambda: eval_helpers.configure(buddy=buddies[name], task=DoorTask,
+                                              dataset_args=dict(EVAL_DATASET_ARGS))
+
+    vs = run_eval_card_vs_cpu(eval_helpers, pf_kernels, pf_module,
+                              {"b1": pf_kernels.launch_b1, "b3": fused_step.fused_forward_kernel},
+                              {"cuda": (model, configure("cuda")), "cpu": (cpu_model, configure("cpu"))},
+                              belief0, eps, uni)
+    with torch.no_grad():
+        defn = model.definition
+        enabled = model._enabled_tuple
+        features, ctrl = defn.encode_sequences({k: v[1:] for k, v in obs.items()},
+                                               controls[1:], enabled)
+        ops = fused_step.pack_operands(defn, features, ctrl, eps, enabled, m)
+    b3 = b3_per_step(fused_step, pf_kernels, ops, ParticleBelief(*belief0), uni)
+    ds = SubsequenceDataset(trajs, TRAIN_L)
+    batch = {"states": ds.states[:TRAIN_B], "controls": ds.controls[:TRAIN_B],
+             "obs": {k: v[:TRAIN_B] for k, v in ds.observations.items()}}
+    b2 = b2_along_step(pf_estimate, model, batch, loops)
+
+    meas_calls = probe.of("train_pf_measurement")
+    pairs = sum(len(t.states) for t in trajs)
+    meas_samples = sum(pairs // c["kwargs"]["batch_size"] * c["kwargs"]["batch_size"]
+                       * c["kwargs"]["epochs"] * 10 for c in meas_calls)
+    log_evals = probe.of("log_eval")
+    out = {"phase": "train_cli", "model": "DoorCrossmodalParticleFilter", "units": 64,
+           "M_train": model.definition.num_particles_train, "M_eval": m,
+           "cut": {"train_trajectories": len(trajs), "eval_trajectories": n,
+                   "steps": [int(min(len(t.states) for t in trajs)),
+                             int(max(len(t.states) for t in trajs))],
+                   "eval_T": t_eval, "env": CLI_ENV},
+           "wall_s": wall_s, "phase_wall_s": phase_walls(probe, CLI_PHASES),
+           "checkpoints": list(CLI_PHASES), "metadata_keys": sorted(meta),
+           "launches": launches, "expected_launches": want, "eval_loops": eval_loops(probe),
+           "losses_falling": falling, "frozen": frozen,
+           "rmse": {"untrained": untrained, "trained": {k: results[k] for k in
+                                                        ("raw_rmse", "theta_rmse_deg",
+                                                         "x_rmse_cm", "y_rmse_cm")}},
+           "train_filter_steps_per_s": cli_train_rates(e2e, trajs),
+           "measurement_samples_per_s": meas_samples / sum(c["s"] for c in meas_calls),
+           "ms_per_log_eval": 1e3 * statistics.mean(c["s"] for c in log_evals),
+           "log_evals": len(log_evals),
+           "trained_run_eval_card_vs_cpu": {k: vs[k] for k in (
+               "b1_vs_plain", "max_abs_err_est", "est_scale", "steps_compared",
+               "trajectories_never_diverged", "rmse_checked", "max_abs_err_raw_rmse")},
+           "trained_b3_per_step": b3, "trained_b2_along_step": b2, "tf32": False}
+    emit(out)
+    return {"launches": launches, "trajs": trajs, "t_eval": t_eval}
+
+
+def phase_resume(pf_kernels, pf_estimate, work, trained) -> dict:
+    """--resume on the train CLI's experiment: (a) finished, it trains
+    nothing and restores phase4 bit for bit; (b) with phase3.pt and
+    phase4.pt deleted, it restores phase2 (parameters and step count) and
+    trains phases 3 and 4 only, launching B2 for their train_e2e calls
+    alone."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from multimodalfilter_tpu_torch.crossmodal import eval_helpers, train_helpers
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.scripts.door_task import train_door
+
+    counters = {"b1": pf_kernels.launch_b1, "b2f": pf_estimate.pf_update_estimate_fwd,
+                "b2b": pf_estimate.pf_update_estimate_bwd}
+    argv = ["--model-type", "DoorCrossmodalParticleFilter", "--experiment-name",
+            CLI_EXPERIMENT, "--resume"]
+    modules = (train_helpers, eval_helpers, Buddy)
+    ckpt_dir = os.path.join(work.path, "checkpoints", CLI_EXPERIMENT)
+
+    # (a) Every phase done.
+    for c in counters.values():
+        c.launches = 0
+    results_a, probe_a, wall_a = run_cli(train_door, modules, argv, work)
+    launches_a = {k: c.launches for k, c in counters.items()}
+    phase4 = checkpoint_params(work, CLI_EXPERIMENT, "phase4")["params"]
+    now = eval_helpers.filter_model.params.state_dict()
+    check(not [c for c in probe_a.calls if c["name"] in CliProbe.TRAIN]
+          and not probe_a.of("log_eval"), "resume (a) trained or evaluated a phase")
+    check(launches_a["b2f"] == launches_a["b2b"] == 0, f"resume (a) launches {launches_a}")
+    check(launches_a["b1"] == eval_loops(probe_a) * (trained["t_eval"] - 1),
+          f"resume (a) B1 launches {launches_a}")
+    check(same_under(now, phase4, ""), "resume (a): parameters differ from phase4.pt")
+    check(probe_a.restores == [("phase4", torch.load(os.path.join(ckpt_dir, "phase4.pt"),
+                                                     weights_only=True)["steps"])],
+          f"resume (a) restores {probe_a.restores}")
+    check(np.isfinite(results_a["raw_rmse"]).all(), f"resume (a) eval {results_a}")
+
+    # (b) Interrupted after phase 2.
+    phase2 = checkpoint_params(work, CLI_EXPERIMENT, "phase2")
+    for label in ("phase3", "phase4"):
+        os.remove(os.path.join(ckpt_dir, f"{label}.pt"))
+    meas_before = len(metric_series(work, CLI_EXPERIMENT)["train/pf_measurement"])
+    for c in counters.values():
+        c.launches = 0
+    results_b, probe_b, wall_b = run_cli(train_door, modules, argv, work)
+    launches_b = {k: c.launches for k, c in counters.items()}
+    e2e = probe_b.of("train_e2e")
+    check([(c["kwargs"]["subsequence_length"], c["kwargs"]["epochs"]) for c in e2e]
+          == CLI_E2E["phase3"] + CLI_E2E["phase4"], "resume (b) train_e2e calls")
+    want_b2 = e2e_launches(e2e, trained["trajs"])
+    check(launches_b["b2f"] == launches_b["b2b"] == want_b2,
+          f"resume (b) launches {launches_b}, expected {want_b2}")
+    check(launches_b["b1"] == eval_loops(probe_b) * (trained["t_eval"] - 1),
+          f"resume (b) B1 launches {launches_b}")
+    meas = len(metric_series(work, CLI_EXPERIMENT)["train/pf_measurement"]) - meas_before
+    check([c["name"] for c in probe_b.calls if c["name"] in CliProbe.TRAIN][0]
+          == "train_pf_measurement" and len(probe_b.of("train_pf_measurement")) == 1
+          and meas == 30, f"resume (b) measurement passes {meas}")
+    check(probe_b.restores == [("phase2", phase2["steps"])],
+          f"resume (b) restores {probe_b.restores}, phase2 steps {phase2['steps']}")
+    check([label for label, _ in probe_b.saves] == ["phase3", "phase4"],
+          f"resume (b) saves {probe_b.saves}")
+    phase3 = checkpoint_params(work, CLI_EXPERIMENT, "phase3")["params"]
+    check(same_under(phase3, phase2["params"], DYNAMICS),
+          "resume (b): phase3's dynamics differ from phase2's")
+    check(np.isfinite(results_b["raw_rmse"]).all(), f"resume (b) eval {results_b}")
+    emit({"phase": "resume", "experiment": CLI_EXPERIMENT,
+          "finished": {"wall_s": wall_a, "launches": launches_a, "restored": probe_a.restores,
+                       "params_equal_phase4": True, "theta_rmse_deg": results_a["theta_rmse_deg"]},
+          "after_phase2": {"wall_s": wall_b, "launches": launches_b,
+                           "expected_b2_launches": want_b2, "restored": probe_b.restores,
+                           "measurement_passes": meas, "saves": [s for s, _ in probe_b.saves],
+                           "phase3_dynamics_equal_phase2": True,
+                           "theta_rmse_deg": results_b["theta_rmse_deg"]}})
+    return {"launches": launches_b}
+
+
+def phase_lstm(door_models, fused_step, pf_kernels, pf_estimate, device, work, trained) -> dict:
+    """DoorLSTMFilter on the card: forward_loop over the CLI's eval set
+    against the CPU with the same weights (the whole loop: it draws
+    nothing), one train_e2e step against the CPU (train_path's limits), and
+    the train CLI through its curriculum (phase0, phase1), which launches no
+    particle-filter kernel."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from multimodalfilter_tpu_torch.crossmodal import (
+        _eval_batching,
+        eval_helpers,
+        train_helpers,
+    )
+    from multimodalfilter_tpu_torch.crossmodal.tasks import DoorTask
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.scripts.door_task import train_door
+    from multimodalfilter_tpu_torch.train import loops, optim
+
+    # Forward at the eval's shape.
+    gpu, cpu = door_models.DoorLSTMFilter(device=device), door_models.DoorLSTMFilter(device="cpu")
+    cpu.params.load_state_dict(gpu.params.state_dict())
+    eval_helpers.configure(buddy=Buddy("lstm_eval", gpu, log_dir=os.path.join(work.path, "logs"),
+                                       verbose=False),
+                           task=DoorTask, dataset_args=dict(EVAL_DATASET_ARGS))
+    states, obs, controls = _eval_batching.get_eval_batch()
+    ests = {}
+    for name, mdl in (("cuda", gpu), ("cpu", cpu)):
+        mdl.eval()
+        mdl.initialize_beliefs(mean=states[0], covariance=np.tile(
+            np.eye(3, dtype=np.float32) * 0.1, (states.shape[1], 1, 1)))
+        ests[name] = mdl.forward_loop(observations={k: v[1:] for k, v in obs.items()},
+                                      controls=controls[1:]).cpu()
+    fwd_err = float((ests["cuda"] - ests["cpu"]).abs().max())
+    fwd_scale = float(ests["cpu"].abs().max())
+    check(bool(torch.isfinite(ests["cuda"]).all()), "LSTM estimates not finite")
+    check(fwd_err <= LOOP_ATOL * max(1.0, fwd_scale), f"LSTM forward card vs CPU {fwd_err}")
+
+    # One train step on the card against the CPU.
+    g_model = door_models.DoorLSTMFilter(device=device, seed=1)
+    c_model = door_models.DoorLSTMFilter(device="cpu", seed=1)
+    ds = SubsequenceDataset(trained["trajs"], TRAIN_L)
+    batch = {"states": ds.states[:TRAIN_B], "controls": ds.controls[:TRAIN_B],
+             "obs": {k: v[:TRAIN_B] for k, v in ds.observations.items()}}
+    step = step_card_vs_cpu(g_model, c_model, batch, (), loops, optim, "lstm_step_card_vs_cpu")
+
+    # The CLI.
+    counters = {"b1": pf_kernels.launch_b1, "b2f": pf_estimate.pf_update_estimate_fwd,
+                "b2b": pf_estimate.pf_update_estimate_bwd, "b3": fused_step.fused_forward_kernel}
+    for c in counters.values():
+        c.launches = 0
+    results, probe, wall_s = run_cli(
+        train_door, (train_helpers, eval_helpers, Buddy),
+        ["--model-type", "DoorLSTMFilter", "--experiment-name", "chip_smoke_lstm"], work)
+    launches = {k: c.launches for k, c in counters.items()}
+    check(launches == {"b1": 0, "b2f": 0, "b2b": 0, "b3": 0}, f"LSTM CLI launches {launches}")
+    check([label for label, _ in probe.saves] == ["phase0", "phase1"], f"LSTM saves {probe.saves}")
+    series = metric_series(work, "chip_smoke_lstm")
+    check(all(np.isfinite(v).all() for v in series.values()) and series["train/e2e"],
+          "LSTM losses")
+    check(np.isfinite(results["raw_rmse"]).all(), f"LSTM eval {results}")
+    rates = cli_train_rates(probe.of("train_e2e"), train_helpers.trajectories)
+    emit({"phase": "lstm", "model": "DoorLSTMFilter", "units": 64, "hidden": 512,
+          "forward": {"N": states.shape[1], "T": states.shape[0] - 1, "max_abs_err": fwd_err,
+                      "scale": fwd_scale, "atol": LOOP_ATOL},
+          "card_vs_cpu_step": step,
+          "cli": {"wall_s": wall_s, "saves": [s for s, _ in probe.saves], "launches": launches,
+                  "e2e_losses": [series["train/e2e"][0], series["train/e2e"][-1]],
+                  **{k: results[k] for k in ("raw_rmse", "theta_rmse_deg", "x_rmse_cm",
+                                             "y_rmse_cm")},
+                  "run_eval_filter_steps_per_s": results["filter_steps_per_sec_e2e"],
+                  "train_filter_steps_per_s": rates}})
+    return {"launches": launches}
 
 
 def serving_profile(model, device) -> dict:
@@ -2205,6 +2883,17 @@ def main(argv=None) -> int:
         door_models, (pf_kernels.launch_b1,
                       pf_estimate.pf_update_estimate_fwd,
                       pf_estimate.pf_update_estimate_bwd), device)
+    with cli_workspace() as work:
+        phase_s = {}
+        t0 = time.perf_counter()
+        train_cli = phase_train_cli(fused_step, pf_kernels, pf_estimate, pf_module, device,
+                                    work)
+        phase_s["train_cli"] = time.perf_counter() - t0
+        phase_resume(pf_kernels, pf_estimate, work, train_cli)
+        phase_s["resume"] = time.perf_counter() - t0 - phase_s["train_cli"]
+        phase_lstm(door_models, fused_step, pf_kernels, pf_estimate, device, work, train_cli)
+        phase_s["lstm"] = time.perf_counter() - t0 - sum(phase_s.values())
+    emit({"phase": "train_cli_phases_wall_s", **phase_s})
     times = phase_times(main_path["model"], pf_kernels, device)
     if old is not None:
         phase_yardstick(old, pf_kernels, pf_module, main_path["model"], device)
@@ -2226,6 +2915,7 @@ def main(argv=None) -> int:
         "replaces": "multimodalfilter_tpu/ops/pallas_pf.py:65",
         "launches": main_path["launches"],
         "eval_pipeline_launches": eval_pipeline["b1_launches"],
+        "train_cli_launches": train_cli["launches"]["b1"],
         "max_abs_err": b1_check["max_abs_err_est"],
         "max_abs_err_est": b1_check["max_abs_err_est"],
         "index_mismatch_non_tie": b1_check["index_mismatch_non_tie"],
@@ -2241,6 +2931,7 @@ def main(argv=None) -> int:
         "source": "multimodalfilter_tpu_torch/csrc/pf_estimate.cu",
         "replaces": f"multimodalfilter_tpu/ops/pallas_pf.py:{line}",
         "launches": train_path["launches"][key],
+        "train_cli_launches": train_cli["launches"][key],
         "max_abs_err": b2_check[part],
         "shape": [TRAIN_B, TRAIN_M, 3],
         "ms": b2_times[f"{key}_{TRAIN_B}x{TRAIN_M}x3"]["ms"],

@@ -2,6 +2,11 @@ from . import _defs
 from .models import (
     DoorCrossmodalParticleFilter,
     DoorCrossmodalParticleFilterSeq5,
+    DoorCrossmodalWeightModel,
+    DoorDynamicsModel,
+    DoorDynamicsModelBrent,
+    DoorLSTMFilter,
+    DoorMeasurementModel,
     DoorParticleFilter,
     DoorUnimodalParticleFilter,
 )
@@ -9,6 +14,11 @@ from .models import (
 __all__ = [
     "DoorCrossmodalParticleFilter",
     "DoorCrossmodalParticleFilterSeq5",
+    "DoorCrossmodalWeightModel",
+    "DoorDynamicsModel",
+    "DoorDynamicsModelBrent",
+    "DoorLSTMFilter",
+    "DoorMeasurementModel",
     "DoorParticleFilter",
     "DoorUnimodalParticleFilter",
     "_defs",

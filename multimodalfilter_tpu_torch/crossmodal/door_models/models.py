@@ -1,20 +1,33 @@
-"""Door-task particle filters (port of the PF classes of
+"""Door-task filters (port of the PF and LSTM classes of
 ``crossmodal/door_models/models.py``). Each is a ``StatefulFilter`` over a
-``ParticleFilterDef``, runs on ``device`` (default ``cuda``) and registers
-itself as a ``--model-type`` choice by subclassing ``DoorTask.Filter``."""
+filter def, runs on ``device`` (default ``cuda``) and registers itself as a
+``--model-type`` choice by subclassing ``DoorTask.Filter``. The EKF classes
+and their component factories come with ROADMAP A9."""
 
 from __future__ import annotations
 
 from ..._device import Device, resolve_device
-from ...filtering import CrossmodalPFMeasurementDef, ParticleFilterDef
+from ...filtering import CrossmodalPFMeasurementDef, LSTMFilterDef, ParticleFilterDef
 from ...filtering.wrappers import StatefulFilter
+from ...models import LSTMFilterNet
 from ..tasks import DoorTask
 from . import _defs
+
+# Factory aliases with the reference's class names (constructible components).
+DoorDynamicsModel = _defs.dynamics_def
+
+
+def DoorDynamicsModelBrent(units: int = 64, *, device=None):
+    return _defs.dynamics_def(units=units, brent=True, device=device)
+
+
+DoorMeasurementModel = _defs.measurement_def
+DoorCrossmodalWeightModel = _defs.pf_weight_def
 
 
 def _pf_def(measurement_model, device) -> ParticleFilterDef:
     return ParticleFilterDef(
-        dynamics_model=_defs.dynamics_def(brent=True, device=device),
+        dynamics_model=DoorDynamicsModelBrent(device=device),
         measurement_model=measurement_model,
         state_dim=_defs.STATE_DIM,
     )
@@ -22,8 +35,8 @@ def _pf_def(measurement_model, device) -> ParticleFilterDef:
 
 def _two_modality_models(device):
     return (
-        _defs.measurement_def(modalities={"image"}, device=device),
-        _defs.measurement_def(modalities={"pos", "sensors"}, device=device),
+        DoorMeasurementModel(modalities={"image"}, device=device),
+        DoorMeasurementModel(modalities={"pos", "sensors"}, device=device),
     )
 
 
@@ -33,7 +46,7 @@ class DoorParticleFilter(StatefulFilter, DoorTask.Filter):
 
     def __init__(self, *, device: Device = None, seed: int = 0):
         device = resolve_device(device)
-        super().__init__(_pf_def(_defs.measurement_def(device=device), device),
+        super().__init__(_pf_def(DoorMeasurementModel(device=device), device),
                          device=device, seed=seed)
 
 
@@ -47,7 +60,7 @@ class DoorCrossmodalParticleFilter(StatefulFilter, DoorTask.Filter):
             _pf_def(
                 CrossmodalPFMeasurementDef(
                     measurement_models=_two_modality_models(device),
-                    crossmodal_weight_model=_defs.pf_weight_def(
+                    crossmodal_weight_model=DoorCrossmodalWeightModel(
                         know_image_blackout=know_image_blackout, device=device
                     ),
                 ),
@@ -76,6 +89,21 @@ class DoorUnimodalParticleFilter(StatefulFilter, DoorTask.Filter):
                     crossmodal_weight_model=None,
                 ),
                 device,
+            ),
+            device=device, seed=seed,
+        )
+
+
+class DoorLSTMFilter(StatefulFilter, DoorTask.Filter):
+    """LSTM baseline: the encoders of every modality, two LSTM cells of
+    hidden size 512, a head to the state."""
+
+    def __init__(self, units: int = 64, *, device: Device = None, seed: int = 0):
+        device = resolve_device(device)
+        super().__init__(
+            LSTMFilterDef(
+                net=LSTMFilterNet(state_dim=_defs.STATE_DIM, units=units, device=device),
+                state_dim=_defs.STATE_DIM,
             ),
             device=device, seed=seed,
         )

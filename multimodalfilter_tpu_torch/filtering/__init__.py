@@ -1,5 +1,6 @@
 from .base import DynamicsDef, FilterDef, MeasurementDef
 from .fusion import CrossmodalPFMeasurementDef, PFWeightDef, weighted_average
+from .lstm import LSTMFilterDef
 from .pf import ParticleFilterDef
 from .wrappers import StatefulFilter
 
@@ -7,6 +8,7 @@ __all__ = [
     "CrossmodalPFMeasurementDef",
     "DynamicsDef",
     "FilterDef",
+    "LSTMFilterDef",
     "MeasurementDef",
     "ParticleFilterDef",
     "PFWeightDef",

@@ -156,7 +156,10 @@ class StatefulFilter:
         # discarded loop before it times a new one.
         self._loops_run: set = set()
         self.frozen_paths: set = set()
-        count = len(getattr(definition.measurement_model, "measurement_models", ()))
+        # The fused models of a crossmodal measurement model (none for a
+        # plain PF, or for the LSTM, which has no measurement model).
+        count = len(getattr(getattr(definition, "measurement_model", None),
+                            "measurement_models", ()))
         self._enabled_models: Optional[List[bool]] = [True] * count if count else None
 
     # -- mode / config ------------------------------------------------------
@@ -192,9 +195,15 @@ class StatefulFilter:
     def state_dim(self) -> int:
         return self.definition.state_dim
 
+    def _gate(self):
+        """The crossmodal gate's def, or None (no gate, or no measurement
+        model)."""
+        mm = getattr(self.definition, "measurement_model", None)
+        return getattr(mm, "crossmodal_weight_model", None)
+
     @property
     def know_image_blackout(self) -> bool:
-        gate = getattr(self.definition.measurement_model, "crossmodal_weight_model", None)
+        gate = self._gate()
         return bool(gate is not None and gate.know_image_blackout)
 
     @know_image_blackout.setter
@@ -202,9 +211,9 @@ class StatefulFilter:
         """Scripts flip this after construction
         (``scripts/door_task/train_door.py:73``); defs are frozen, so the def is rebuilt with the flag. Its networks, and so
         ``params``, are kept. A def with no gate ignores it, as in JAX."""
-        mm = self.definition.measurement_model
-        gate = getattr(mm, "crossmodal_weight_model", None)
+        gate = self._gate()
         if gate is not None:
+            mm = self.definition.measurement_model
             self.definition = dataclasses.replace(
                 self.definition,
                 measurement_model=dataclasses.replace(

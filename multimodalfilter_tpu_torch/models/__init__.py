@@ -4,6 +4,8 @@ from .task_nets import (
     MODALITY_ORDER,
     DynamicsNet,
     LogLikelihoodNet,
+    LSTMFilterNet,
+    OptimizedLSTMCell,
     PFWeightNet,
 )
 
@@ -13,7 +15,9 @@ __all__ = [
     "ImageEncoder",
     "LinearResblock",
     "LogLikelihoodNet",
+    "LSTMFilterNet",
     "MLPEncoder",
     "MODALITY_ORDER",
+    "OptimizedLSTMCell",
     "PFWeightNet",
 ]

@@ -1,6 +1,7 @@
-"""Task networks of the particle filter (port of
-``multimodalfilter_tpu/models/task_nets.py``): the observation encoders,
-``DynamicsNet``, ``LogLikelihoodNet`` and ``PFWeightNet``.
+"""Task networks (port of ``multimodalfilter_tpu/models/task_nets.py``): the
+observation encoders, ``DynamicsNet``, ``LogLikelihoodNet`` and
+``PFWeightNet`` of the particle filters, and the LSTM baseline's
+``LSTMFilterNet`` with its cell, ``OptimizedLSTMCell``.
 
 Attribute names are the flax scope names, so the state-dict keys of each net
 are its flax param paths. Flax infers input widths from data; here they are
@@ -178,3 +179,105 @@ class PFWeightNet(nn.Module):
         for i in range(self.num_fusion_resblocks):
             x = getattr(self, f"fusion_resblock{i}")(x)
         return self.fusion_dense_out(x)
+
+
+class OptimizedLSTMCell(nn.Module):
+    """flax's ``nn.OptimizedLSTMCell``, with its parameters: per gate
+    (i, f, g, o) an input dense ``i<gate>`` (no bias) and a recurrent dense
+    ``h<gate>`` (with the bias), so the state-dict keys are flax's
+    (``ii.weight``, ``hi.weight``, ``hi.bias``, ...; ``if`` is a keyword, so
+    the denses are registered by name). The carry is (c, h), flax's order,
+    not ``torch.nn.LSTMCell``'s (h, c):
+
+        i, f, o = sigmoid(.), g = tanh(.)
+        c' = f c + i g,  h' = o tanh(c')
+
+    The eight denses run as one (in + H, 4H) product (``packed``), which a
+    loop builds once and passes to every step."""
+
+    GATES = ("i", "f", "g", "o")
+    # The kernels flax draws with its recurrent_kernel_init (orthogonal);
+    # weights.init_params reads this.
+    recurrent_kernels = tuple(f"h{gate}" for gate in GATES)
+
+    def __init__(self, in_features: int, hidden: int, *, device=None):
+        super().__init__()
+        self.hidden = hidden
+        for gate in self.GATES:
+            self.add_module(f"i{gate}", nn.Linear(in_features, hidden, bias=False,
+                                                  device=device))
+            self.add_module(f"h{gate}", nn.Linear(hidden, hidden, device=device))
+
+    def packed(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weight (4H, in + H), bias (4H,)): gate-major rows, each the input
+        kernel's columns then the recurrent kernel's."""
+        weight = torch.cat([
+            torch.cat([getattr(self, f"i{g}").weight, getattr(self, f"h{g}").weight], dim=1)
+            for g in self.GATES
+        ])
+        bias = torch.cat([getattr(self, f"h{g}").bias for g in self.GATES])
+        return weight, bias
+
+    def forward(self, carry, x, packed=None):
+        """carry (c, h), each (N, H); x (N, in) -> ((c', h'), h')."""
+        c, h = carry
+        weight, bias = self.packed() if packed is None else packed
+        y = torch.addmm(bias, torch.cat([x, h], dim=-1), weight.t())
+        i, f, g, o = y.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (c, h), h
+
+
+class LSTMFilterNet(nn.Module):
+    """LSTM baseline: the observation encoders (all modalities) and a
+    control encoder, fused (dense, ReLU, resblock), a stack of LSTM cells
+    (hidden 512), and a head to the state (dense, ReLU, dense).
+
+    ``encode`` runs on any number of frames (the filter encodes all T*N at
+    once); ``lstm_step`` advances the cells by one step."""
+
+    def __init__(self, state_dim: int, units: int = 64, lstm_hidden_dim: int = 512,
+                 lstm_num_layers: int = 2, control_dim: int = 7, *, device=None):
+        super().__init__()
+        self.lstm_hidden_dim = lstm_hidden_dim
+        self.lstm_num_layers = lstm_num_layers
+        self.obs_encoders = _ObservationEncoders(units, MODALITY_ORDER, device=device)
+        self.control_layers = MLPEncoder(control_dim, units, device=device)
+        self.fusion_dense = nn.Linear(self.obs_encoders.out_features + units, units,
+                                      device=device)
+        self.fusion_resblock = LinearResblock(units, device=device)
+        for i in range(lstm_num_layers):
+            self.add_module(f"lstm_{i}", OptimizedLSTMCell(
+                units if i == 0 else lstm_hidden_dim, lstm_hidden_dim, device=device))
+        self.output_dense_in = nn.Linear(lstm_hidden_dim, units, device=device)
+        self.output_dense_out = nn.Linear(units, state_dim, device=device)
+
+    @property
+    def cells(self) -> Tuple[OptimizedLSTMCell, ...]:
+        return tuple(getattr(self, f"lstm_{i}") for i in range(self.lstm_num_layers))
+
+    def encode(self, observations, controls) -> torch.Tensor:
+        """Fused features (B, units) of B frames."""
+        merged = torch.cat([self.obs_encoders(observations),
+                            self.control_layers(controls)], dim=-1)
+        return self.fusion_resblock(torch.relu(self.fusion_dense(merged)))
+
+    def packed_cells(self):
+        """Each cell's ``packed`` weights, for a loop of ``lstm_step``s."""
+        return tuple(cell.packed() for cell in self.cells)
+
+    def lstm_step(self, carry, features, packed=None):
+        """carry: one (c, h) a layer; features (N, units) -> (carry',
+        state (N, state_dim))."""
+        packed = self.packed_cells() if packed is None else packed
+        new_carry, x = [], features
+        for cell, layer_carry, weights in zip(self.cells, carry, packed):
+            layer_carry, x = cell(layer_carry, x, weights)
+            new_carry.append(layer_carry)
+        state = self.output_dense_out(torch.relu(self.output_dense_in(x)))
+        return tuple(new_carry), state
+
+    def forward(self, observations, controls, carry):
+        """One filter step."""
+        return self.lstm_step(carry, self.encode(observations, controls))

@@ -27,11 +27,15 @@ from ...crossmodal import eval_helpers
 from ...crossmodal.tasks import DoorTask
 from ...data import set_cache_path
 from ...experiments import Buddy
+from ...parallel.cli import (
+    add_parallelism_args,
+    add_serving_arg,
+    apply_serving_arg,
+    meshes_from_args,
+)
 
 Task = DoorTask
 REPO_CACHE_DIR = str(Path(__file__).resolve().parents[3] / ".cache")
-_PARALLELISM_FLAGS = ("data_parallel", "pipeline_stages", "pipeline_microbatches",
-                      "particle_shards")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -56,14 +60,8 @@ def _parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--device", type=str, default="cuda",
                         help="the device the model runs on (default cuda)")
-    parser.add_argument("--serving", action="store_true",
-                        help="the serving stack, as MMF_TPU_SERVING=1 (not ported "
-                             "yet: raises, ROADMAP A8)")
-    group = parser.add_argument_group("parallelism (not ported yet: ROADMAP A13)")
-    group.add_argument("--data-parallel", type=int, default=None, metavar="N")
-    group.add_argument("--pipeline-stages", type=int, default=None, metavar="N")
-    group.add_argument("--pipeline-microbatches", type=int, default=None, metavar="M")
-    group.add_argument("--particle-shards", type=int, default=None, metavar="Q")
+    add_serving_arg(parser)
+    add_parallelism_args(parser)
     return parser
 
 
@@ -86,14 +84,8 @@ def main(argv=None, *, cache_dir: Optional[str] = None) -> Dict[str, float]:
     """Run the eval CLI on `argv`; returns the stats. `cache_dir` replaces
     the repo's ``.cache/`` as the dataset cache."""
     args = _parser().parse_args(argv)
-    used = [f"--{f.replace('_', '-')}" for f in _PARALLELISM_FLAGS
-            if getattr(args, f) is not None]
-    if used:
-        raise NotImplementedError(
-            f"{', '.join(used)}: multi-device eval is not ported yet (ROADMAP A13)"
-        )
-    if args.serving:  # read when the model is built, which raises (A8)
-        os.environ["MMF_TPU_SERVING"] = "1"
+    meshes_from_args(args)
+    apply_serving_arg(args)
     os.environ["MMF_TPU_EVAL_BATCH_REPEATS"] = "1" if args.batched_repeats else "0"
 
     set_cache_path(cache_dir or REPO_CACHE_DIR)

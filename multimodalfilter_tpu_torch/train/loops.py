@@ -195,21 +195,25 @@ def train_pf_measurement(
 def e2e_loss(defn, batch, *, enabled, initial_cov_scale, generator):
     """The e2e loss of one batch (JAX loops.py:387-413): beliefs at the true
     first state with initial_cov_scale * I, the train-mode filter loop over
-    the remaining L-1 steps, then the MSE of the estimates."""
+    the remaining L-1 steps, then the MSE of the estimates. A particle
+    filter's noise (the initial particles' and each step's) comes from
+    ``draw_noise``; a def without particles (the LSTM) draws nothing."""
     states = _time_major(batch["states"])  # (L, B, D)
     controls = _time_major(batch["controls"])
     obs = _time_major(batch["obs"])
     seq_len, b, d = states.shape
-    m = defn.num_particles(train=True)
-    eps0, eps_seq = draw_noise(
-        generator, ((b, m, d), (seq_len - 1, b * m, d)), states.device
-    )
+    init_noise, loop_noise = {}, {}
+    if hasattr(defn, "num_particles"):
+        m = defn.num_particles(train=True)
+        init_noise["eps"], loop_noise["eps_seq"] = draw_noise(
+            generator, ((b, m, d), (seq_len - 1, b * m, d)), states.device
+        )
     cov = torch.eye(d, dtype=states.dtype, device=states.device) * initial_cov_scale
     cov = cov.expand(b, d, d)
-    belief = defn.initialize_beliefs(states[0], cov, train=True, eps=eps0)
+    belief = defn.initialize_beliefs(states[0], cov, train=True, **init_noise)
     _, estimates = defn.forward_loop(
         belief, {k: v[1:] for k, v in obs.items()}, controls[1:], train=True,
-        enabled=enabled, eps_seq=eps_seq,
+        enabled=enabled, **loop_noise,
     )
     return torch.mean((estimates - states[1:]) ** 2)
 

@@ -93,15 +93,25 @@ def init_params(module: nn.Module, seed: int) -> None:
     """Seeded init as flax's defaults: every weight drawn as
     ``lecun_normal`` draws it (a normal cut at two standard deviations,
     std sqrt(1/fan_in) / 0.8796..., so its variance is 1/fan_in and no
-    draw lies beyond 2.27/sqrt(fan_in)), zero biases. Drawn on the CPU, so a
-    seed gives the same weights on every device."""
+    draw lies beyond 2.27/sqrt(fan_in)), zero biases; except an LSTM cell's
+    recurrent kernels (a module's ``recurrent_kernels``), each an orthogonal
+    matrix as flax's ``recurrent_kernel_init`` draws it. Drawn on the CPU,
+    so a seed gives the same weights on every device."""
     generator = torch.Generator().manual_seed(seed)
+    orthogonal = {
+        f"{prefix}.{name}.weight" if prefix else f"{name}.weight"
+        for prefix, sub in module.named_modules()
+        for name in getattr(sub, "recurrent_kernels", ())
+    }
     for name, p in module.named_parameters():
         if name.endswith("bias"):
             p.zero_()
             continue
-        std = p[0].numel() ** -0.5 / _TRUNCATED_NORMAL_STD
         draw = torch.empty(p.shape)
-        torch.nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std,
-                                    generator=generator)
+        if name in orthogonal:
+            torch.nn.init.orthogonal_(draw, generator=generator)
+        else:
+            std = p[0].numel() ** -0.5 / _TRUNCATED_NORMAL_STD
+            torch.nn.init.trunc_normal_(draw, std=std, a=-2 * std, b=2 * std,
+                                        generator=generator)
         p.copy_(draw)

@@ -45,6 +45,17 @@ T, N, M = 8, 2, 50
 RTOL, ATOL = 2e-4, 2e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on one thread each, so that a machine busy with other test
+    workers does not stall them on an oversubscribed thread pool. Restored
+    after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _sequences(t, n, seed=0):
     r = np.random.default_rng(seed)
     obs = {

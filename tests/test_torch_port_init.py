@@ -38,3 +38,50 @@ def test_init_params_draws_as_flax_lecun_normal(module, flax_shape):
         assert np.abs(draws).max() <= cut * (1 + 1e-6)
         np.testing.assert_allclose(draws.var() * fan_in, 1.0, rtol=VAR_RTOL)
     assert not module.bias.detach().any()
+
+
+
+# An orthogonal draw's rows are orthonormal: W W^T = I up to the fp32
+# rounding of the QR and of the product (~1e-6 over 512 terms).
+ORTHO_ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def lstm_draws():
+    """(an OptimizedLSTMCell(64, 512) after init_params, flax's lecun_normal
+    draw of an input kernel, its orthogonal draw of a recurrent kernel),
+    made once on one torch thread (the suite's workers share the cores)."""
+    from multimodalfilter_tpu_torch.models import OptimizedLSTMCell
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cell = OptimizedLSTMCell(64, 512)
+        init_params(cell, seed=0)
+    finally:
+        torch.set_num_threads(threads)
+    key = jax.random.PRNGKey(0)
+    return (cell, np.asarray(jax.nn.initializers.lecun_normal()(key, (64, 512))),
+            np.asarray(jax.nn.initializers.orthogonal()(key, (512, 512))))
+
+
+@pytest.mark.parametrize("kernel", [f"{kind}{gate}" for kind in "ih" for gate in "ifgo"])
+def test_init_params_draws_lstm_cell_as_flax(kernel, lstm_draws):
+    """An LSTM cell's eight kernels as flax's OptimizedLSTMCell draws them:
+    the input kernels (i*, (64, 512) in flax) as lecun_normal, the recurrent
+    ones (h*, (512, 512)) orthogonal (flax's recurrent_kernel_init). Both
+    fail on torch.nn.LSTMCell's init, uniform on +-1/sqrt(H)."""
+    cell, lecun, orthogonal = lstm_draws
+    port = getattr(cell, kernel).weight.detach().numpy()
+    if kernel.startswith("i"):
+        flax = lecun
+        cut = 2 * 64 ** -0.5 / TRUNCATED_NORMAL_STD
+        for draws in (port, flax):
+            assert np.abs(draws).max() <= cut * (1 + 1e-6)
+            np.testing.assert_allclose(draws.var() * 64, 1.0, rtol=VAR_RTOL)
+    else:
+        flax = orthogonal
+        for draws in (port, flax):
+            np.testing.assert_allclose(draws @ draws.T, np.eye(512), rtol=0, atol=ORTHO_ATOL)
+        assert not cell.get_parameter(f"{kernel}.bias").detach().any()
+    assert port.shape == flax.T.shape

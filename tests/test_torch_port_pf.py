@@ -40,6 +40,17 @@ TIE = 1e-6  # fp32 CDFs summed in different orders differ by ~1e-7
 LOOP_ATOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on one thread each, so that a machine busy with other test
+    workers does not stall them on an oversubscribed thread pool. Restored
+    after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _b1_inputs(n, m, d, seed=0, lead=0.0):
     """Seeded tail inputs; `lead` > 0 raises one particle of row 0 that many
     nats above the rest, so the others' probabilities are ~exp(-lead) or

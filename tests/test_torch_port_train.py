@@ -35,6 +35,17 @@ FWD_ATOL = 1e-6
 GRAD_ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on one thread each, so that a machine busy with other test
+    workers does not stall them on an oversubscribed thread pool. Restored
+    after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _b2_inputs(n, m, d, seed=0):
     r = np.random.default_rng(seed)
     logits = r.normal(size=(n, m)).astype(np.float32)

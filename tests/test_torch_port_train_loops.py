@@ -32,6 +32,17 @@ LOSS_RTOL = 1e-5
 UPDATE_RTOL = 1e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Small ops on one thread each, so that a machine busy with other test
+    workers does not stall them on an oversubscribed thread pool. Restored
+    after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _trajectories(cls, count=2, t=12, seed=0):
     r = np.random.default_rng(seed)
     out = []
