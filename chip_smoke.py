@@ -26,7 +26,16 @@ through its kernels, and times them:
   launches counted from the datasets, and B1, B3, B2f and B2b held against
   their plain versions on the trained model); ``--resume`` on the finished
   run and on one interrupted after phase 2; and the LSTM baseline, card
-  against CPU and through its own curriculum.
+  against CPU and through its own curriculum;
+- the Kalman filters (``kf_train_cli`` and ``ekf``): the train CLI's three
+  KF curricula (crossmodal KF, unimodal KF, EKF) with their checkpoints,
+  falling pretraining losses, frozen parts and checkpoint surgery bit for
+  bit and a trained RMSE below the untrained one, then ``--resume`` of the
+  crossmodal KF; the five KF classes' ``forward_loop`` card against CPU at
+  every step (every enabled pattern, the blackout override), measurement
+  init, one loop each with no host sync, one train step of the crossmodal
+  KF and of the EKF against the CPU, and their times. No kernel of the
+  repo is on their path.
 
 B3 is also held against its plain version step by step (T=100 launches of
 one step, each from the plain run's belief), over a whole loop, and at other
@@ -769,7 +778,7 @@ def snapshot(model):
     return {k: v.detach().clone() for k, v in model.params.state_dict().items()}
 
 
-def one_step(model, batch, noise, loops, optim):
+def one_step(model, batch, noise, loops, optim, measurement_initialize=False):
     """The e2e loss, its gradients and one fresh Adam step on `model`, from
     a fixed batch and fixed noise. Returns (loss, grads, params after)."""
     import torch
@@ -782,7 +791,8 @@ def one_step(model, batch, noise, loops, optim):
         with torch.enable_grad():
             loss = loops.e2e_loss(model.definition, loops._to_device(batch, device),
                                   enabled=model._enabled_tuple, initial_cov_scale=0.1,
-                                  generator=None)
+                                  generator=None,
+                                  measurement_initialize=measurement_initialize)
             loss.backward()
         grads = {k: p.grad.detach().cpu().clone() for k, p in model.params.named_parameters()}
         optim.apply_gradients(optimizer, model.params, frozenset())
@@ -791,7 +801,8 @@ def one_step(model, batch, noise, loops, optim):
     return float(loss.detach()), grads, {k: v.cpu() for k, v in snapshot(model).items()}
 
 
-def step_card_vs_cpu(gpu_model, cpu_model, batch, noise, loops, optim, name) -> dict:
+def step_card_vs_cpu(gpu_model, cpu_model, batch, noise, loops, optim, name,
+                     measurement_initialize=False) -> dict:
     """One e2e step (one_step) of two models with the same weights, on the
     card and on the CPU, from the same batch and noise: the loss within
     STEP_LOSS_RTOL, every gradient within STEP_GRAD_RTOL of its scale, the
@@ -801,8 +812,10 @@ def step_card_vs_cpu(gpu_model, cpu_model, batch, noise, loops, optim, name) -> 
     import torch
 
     start = {k: v.cpu() for k, v in snapshot(gpu_model).items()}
-    g_loss, g_grads, g_params = one_step(gpu_model, batch, noise, loops, optim)
-    c_loss, c_grads, c_params = one_step(cpu_model, batch, noise, loops, optim)
+    g_loss, g_grads, g_params = one_step(gpu_model, batch, noise, loops, optim,
+                                         measurement_initialize)
+    c_loss, c_grads, c_params = one_step(cpu_model, batch, noise, loops, optim,
+                                         measurement_initialize)
     loss_err = abs(g_loss - c_loss) / abs(c_loss)
     check(loss_err <= STEP_LOSS_RTOL, f"step loss {g_loss} vs {c_loss}")
     lr = optim.DEFAULT_LEARNING_RATE
@@ -811,7 +824,10 @@ def step_card_vs_cpu(gpu_model, cpu_model, batch, noise, loops, optim, name) -> 
     largest_step = 0.0
     for k in c_grads:
         gg, gc = g_grads[k], c_grads[k]
-        grad_errs[k] = float((gg - gc).abs().max()) / float(gc.abs().max())
+        # A gradient that is zero on the CPU (a dead ReLU layer) must be
+        # zero on the card: its error is then the card's largest entry.
+        grad_errs[k] = (float((gg - gc).abs().max()) / float(gc.abs().max()) if gc.any()
+                        else float(gg.abs().max()))
         dg, dc = g_params[k] - start[k], c_params[k] - start[k]
         ulp = 2 * torch.finfo(torch.float32).eps * start[k].abs()
         ok = (gc.abs() >= 1e-5) & (gc.abs() >= 2 * (gg - gc).abs())
@@ -2026,7 +2042,7 @@ class CliProbe:
     (label, the buddy's optimizer steps after it)."""
 
     TRAIN = ("train_e2e", "train_pf_dynamics_single_step", "train_pf_dynamics_recurrent",
-             "train_pf_measurement")
+             "train_pf_measurement", "train_virtual_sensor")
 
     def __init__(self, train_helpers, eval_helpers, buddy_cls):
         import torch
@@ -2068,8 +2084,13 @@ class CliProbe:
 
 class cli_workspace:
     """A temporary working directory (Buddy's directories) with a dataset
-    cache under it, CLI_ENV set and the door sets of CLI_FILES in memory;
-    the working directory, cache path and environment restored after."""
+    cache under it, `env` set (CLI_ENV by default) and the door sets of
+    `files` (CLI_FILES) in memory; the working directory, cache path and
+    environment restored after."""
+
+    def __init__(self, env=None, files=None):
+        self.env = CLI_ENV if env is None else env
+        self.files = CLI_FILES if files is None else files
 
     def __enter__(self):
         import os
@@ -2085,10 +2106,10 @@ class cli_workspace:
         self.cache_dir = os.path.join(self.path, "cache")
         for k in self._env:
             os.environ.pop(k, None)
-        os.environ.update(CLI_ENV)
+        os.environ.update(self.env)
         os.chdir(self.path)
         cache.set_cache_path(self.cache_dir)
-        for name, seed in CLI_FILES:
+        for name, seed in self.files:
             cache.keep_in_memory(name, synthetic.named_trajectories(name, seed=seed))
         return self
 
@@ -2596,6 +2617,419 @@ def phase_lstm(door_models, fused_step, pf_kernels, pf_estimate, device, work, t
     return {"launches": launches}
 
 
+# The Kalman filters (the EKF family). No kernel of the repo is on their
+# path: the EKF algebra is plain PyTorch, as the JAX package leaves it to XLA.
+KF_CLASSES = ("DoorKalmanFilter", "DoorCrossmodalKalmanFilter",
+              "DoorMeasurementCrossmodalKalmanFilter", "DoorUnimodalKalmanFilter",
+              "DoorMeasurementUnimodalKalmanFilter")
+# numpy_weights seed of the KF phase's models. The Kalman update pulls each
+# step to the virtual sensors' z, so random draws stay bounded: every class's
+# loop at N=16, T=100 on these inputs stayed finite and within |x| < 7 for
+# each seed of 20-25 on the CPU; 20 is the first.
+KF_WEIGHTS_SEED = 20
+KF_SAT_N = 512
+# The enabled patterns of the two fusion KFs beside (True, True).
+KF_PATTERNS = {"DoorCrossmodalKalmanFilter": ((True, False), (False, True)),
+               "DoorUnimodalKalmanFilter": ((True, False), (False, True))}
+# The train CLI's KF curricula: (experiment, the labels the JAX curriculum
+# saves, in order); the two measurement-fusion classes share the plain
+# EKF's (scripts/door_task/train_door.py:258-457).
+KF_CLI = {
+    "DoorCrossmodalKalmanFilter": ("chip_smoke_cmkf", (
+        "phase0", "phase1", "phase2", "phase3-image", "phase3-force", "phase4-freeze",
+        "phase4-length3", "phase4-length4", "phase4-done")),
+    "DoorUnimodalKalmanFilter": ("chip_smoke_ukf", (
+        "phase0", "phase1", "phase2", "phase3", "phase4-length4", "phase4-final")),
+    "DoorKalmanFilter": ("chip_smoke_ekf", ("phase0", "phase1", "phase2", "phase3")),
+}
+# The KF curricula's models take their weights from numpy_weights (this
+# seed) instead of the port's seeded init, which draws other weights on
+# another torch version: the card's run can then be rehearsed on the CPU.
+# The init is the one thing changed; the CLI builds and trains the model as
+# a user's run does.
+KF_CLI_WEIGHTS_SEED = 10
+# The KF curricula's data: the smoke-train sets cut to 8 train and 8 eval
+# trajectories (4 a file), so the script stays within about half its time
+# limit; a B=32 batch at L=16 still finds 48 windows.
+KF_CLI_ENV = {**CLI_ENV, "MMF_TPU_SYNTH_TRAJ": "4"}
+EVAL_ENV = {"MMF_TPU_SYNTHESIZE_DATA": "1", "MMF_TPU_OFFLINE": "1",
+            "MMF_TPU_EVAL_DEVICE_THROUGHPUT": "0"}
+CHILD_DYNAMICS = "filter_models.{}.dynamics_model."
+
+
+def kf_pair(cls, device, seed=KF_WEIGHTS_SEED):
+    """(card model, CPU model) of `cls` in eval mode, the same numpy
+    weights."""
+    gpu, cpu = cls(device=device), cls(device="cpu")
+    numpy_weights(gpu.params, seed)
+    cpu.params.load_state_dict(gpu.params.state_dict())
+    return gpu.eval(), cpu.eval()
+
+
+def belief_tensors(belief):
+    """A Gaussian belief, or a tuple of them (the unimodal KF's), as a list
+    of tensors on the CPU."""
+    beliefs = belief if isinstance(belief, tuple) and not hasattr(belief, "mean") else (belief,)
+    return [x.detach().cpu() for b in beliefs for x in b]
+
+
+def belief_to(belief, device):
+    """A Gaussian belief, or a tuple of them, moved to `device`."""
+    if isinstance(belief, tuple) and not hasattr(belief, "mean"):
+        return tuple(belief_to(b, device) for b in belief)
+    return type(belief)(*(x.to(device) for x in belief))
+
+
+def kf_card_vs_cpu(models, obs, controls, mean, cov, enabled=None) -> dict:
+    """The same Kalman filter on the card and on the CPU (`models`:
+    {"cuda": ..., "cpu": ...}, the same weights).
+
+    (1) Step by step from a shared belief: at every step t the card's
+    ``forward`` starts from the CPU's belief at t; its estimate and new
+    belief (means and covariances) must be within LOOP_ATOL of their scale
+    of the CPU's, at every step and trajectory. (2) ``forward_loop`` run
+    free on each: every estimate finite on both (NaN against NaN holds
+    nothing), and each trajectory's estimates within LOOP_ATOL of their
+    scale up to its first step beyond it. F, the dynamics' Jacobian, is
+    piecewise constant in the state (ReLU trunks): where a belief lies within
+    rounding of a kink, the two devices' F differ by O(1) and free-running
+    loops part, as a particle filter's do at a CDF tie; (1) holds each such
+    step from one belief, where both see the same side."""
+    import torch
+
+    gpu, cpu = models["cuda"], models["cpu"]
+    if enabled is not None:
+        for mdl in models.values():
+            mdl.enabled_models = list(enabled)
+    # (1) Step by step.
+    cpu.initialize_beliefs(mean=mean, covariance=cov)
+    step_err = belief_err = 0.0
+    for t in range(controls.shape[0]):
+        frame = {k: v[t] for k, v in obs.items()}
+        gpu.belief = belief_to(cpu.belief, gpu.device)
+        want = cpu.forward(observations=frame, controls=controls[t])
+        got = gpu.forward(observations=frame, controls=controls[t]).cpu()
+        step_err = max(step_err, float((got - want).abs().max()) / max(1.0, float(want.abs().max())))
+        belief_err = max(belief_err, max(
+            float((g - c).abs().max()) / max(1.0, float(c.abs().max()))
+            for g, c in zip(belief_tensors(gpu.belief), belief_tensors(cpu.belief))))
+    check(step_err <= LOOP_ATOL and belief_err <= LOOP_ATOL,
+          f"KF step from a shared belief: estimates {step_err}, belief {belief_err} of scale")
+    # (2) Free-running loops.
+    ests = {}
+    for name, mdl in models.items():
+        mdl.initialize_beliefs(mean=mean, covariance=cov)
+        ests[name] = mdl.forward_loop(observations=obs, controls=controls).cpu()
+    if enabled is not None:
+        for mdl in models.values():
+            mdl.enabled_models = [True] * len(enabled)
+    finite = float(torch.isfinite(ests["cpu"]).all(dim=-1).float().mean())
+    check(finite == 1.0 and bool(torch.isfinite(ests["cuda"]).all()),
+          f"KF loop finite share {finite}")
+    t_len = ests["cpu"].shape[0]
+    scale = float(ests["cpu"].abs().max())
+    apart = (ests["cuda"] - ests["cpu"]).abs().amax(-1) > LOOP_ATOL * max(1.0, scale)
+    first = torch.where(apart.any(0), apart.float().argmax(0), torch.full_like(apart[0], t_len,
+                                                                                dtype=torch.long))
+    err, _, steps = compare_through(ests["cuda"], ests["cpu"], first)
+    check(bool((first > 0).all()), f"KF loops part at the first step: {first.tolist()}")
+    return {"step_err_of_scale": step_err, "step_belief_err_of_scale": belief_err,
+            "loop_max_abs_err": err, "scale": scale, "finite_share": finite,
+            "loop_steps_compared": steps, "loop_steps": int(apart.numel()),
+            "trajectories_apart": {int(i): int(first[i]) for i in range(first.numel())
+                                   if first[i] < t_len},
+            "loop_max_abs_err_free": float((ests["cuda"] - ests["cpu"]).abs().max())}
+
+
+def kf_loop_rate(model, obs, controls, mean, cov, repeats) -> dict:
+    """Filter-steps/s of the facade's forward_loop (initialize_beliefs
+    included), CUDA events, median of `repeats` after one warm-up."""
+    t, n = controls.shape[:2]
+
+    def run():
+        model.initialize_beliefs(mean=mean, covariance=cov)
+        model.forward_loop(observations=obs, controls=controls)
+
+    ms = cuda_ms(run, repeats=repeats, warmup=1)
+    return {"N": n, "T": t, "ms": ms, "filter_steps_per_s": t * n / ms * 1e3}
+
+
+def phase_ekf(door_models, device) -> dict:
+    """The five door Kalman filters on the card at full width, with numpy
+    weights: forward_loop card against CPU at every step (the fusion KFs
+    under every enabled pattern, the crossmodal KF with its blackout
+    override on blacked-out frames), measurement_initialize_beliefs card
+    against CPU, one loop of each with no host sync, one train_e2e step of
+    the crossmodal KF and of the EKF (measurement init) against the CPU,
+    and the times: forward_loop at N=16 and N=512, device kernels a step and
+    busy share, run_eval on the door eval set."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from multimodalfilter_tpu_torch.crossmodal import _eval_batching, eval_helpers
+    from multimodalfilter_tpu_torch.crossmodal.tasks import DoorTask
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.train import loops, optim
+
+    obs, controls = sequences(T, N, seed=21)
+    mean, cov = initial_state(N)
+    sat_obs, sat_controls = sequences(T, KF_SAT_N, seed=22)
+    sat_mean, sat_cov = initial_state(KF_SAT_N)
+    dev = {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
+    dev_controls = torch.from_numpy(controls).to(device)
+    dev_mean, dev_cov = torch.from_numpy(mean).to(device), torch.from_numpy(cov).to(device)
+    out = {"phase": "ekf", "units": 64, "N": N, "T": T, "weights_seed": KF_WEIGHTS_SEED,
+           "limits": {"loop_atol_of_scale": LOOP_ATOL,
+                      "step": [STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_UPDATE_ATOL_LR]},
+           "classes": {}}
+    for name in KF_CLASSES:
+        cls = DoorTask.model_types[name]
+        gpu, cpu = kf_pair(cls, device)
+        models = {"cuda": gpu, "cpu": cpu}
+        rec = {"card_vs_cpu": kf_card_vs_cpu(models, obs, controls, mean, cov)}
+        for enabled in KF_PATTERNS.get(name, ()):
+            rec[f"card_vs_cpu_{''.join('T' if e else 'F' for e in enabled)}"] = \
+                kf_card_vs_cpu(models, obs, controls, mean, cov, enabled)
+        if name == "DoorCrossmodalKalmanFilter":
+            dark = {k: v.copy() for k, v in obs.items()}
+            dark["image"][::4, : N // 2] = 0.0  # every 4th frame of half the batch
+            for mdl in models.values():
+                mdl.know_image_blackout = True
+            rec["card_vs_cpu_blackout"] = kf_card_vs_cpu(models, dark, controls, mean, cov)
+            rec["card_vs_cpu_blackout"]["blacked_out_frames"] = int(
+                (np.abs(dark["image"]).reshape(T, N, -1).sum(-1) == 0).sum())
+            for mdl in models.values():
+                mdl.know_image_blackout = False
+
+        # Measurement init, card against CPU.
+        inits = {}
+        for dev_name, mdl in models.items():
+            mdl.measurement_initialize_beliefs({k: v[0] for k, v in obs.items()})
+            inits[dev_name] = belief_tensors(mdl.belief)
+        init_err = max(float((g - c).abs().max()) / max(1.0, float(c.abs().max()))
+                       for g, c in zip(inits["cuda"], inits["cpu"]))
+        check(init_err <= LOOP_ATOL and all(bool(torch.isfinite(x).all())
+                                            for x in inits["cuda"]),
+              f"{name} measurement init card vs CPU {init_err}")
+        rec["measurement_init_err_of_scale"] = init_err
+
+        # One loop with no host sync: every operation stays on the stream.
+        gpu.initialize_beliefs(mean=dev_mean, covariance=dev_cov)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            est = gpu.forward_loop(observations=dev, controls=dev_controls)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(bool(torch.isfinite(est).all()), f"{name} loop under sync debug mode")
+        rec["no_host_sync"] = True
+
+        # Times.
+        rec["times"] = [kf_loop_rate(gpu, dev, dev_controls, dev_mean, dev_cov, repeats=3),
+                        kf_loop_rate(gpu, {k: torch.from_numpy(v).to(device)
+                                           for k, v in sat_obs.items()},
+                                     torch.from_numpy(sat_controls).to(device),
+                                     torch.from_numpy(sat_mean).to(device),
+                                     torch.from_numpy(sat_cov).to(device), repeats=3)]
+        if name in ("DoorKalmanFilter", "DoorCrossmodalKalmanFilter"):
+            states = np.zeros((T + 1, N, 3), np.float32)
+            rec["profile"] = eval_profile(
+                gpu, {k: torch.cat([v[:1], v]) for k, v in dev.items()},
+                torch.cat([dev_controls[:1], dev_controls]), states)
+        out["classes"][name] = rec
+
+    # One train_e2e step on the card against the CPU: the crossmodal KF, and
+    # the EKF from measurement init.
+    ds = SubsequenceDataset(trajectories(-(-TRAIN_B // (TRAJ_T // TRAIN_L)), TRAJ_T, seed=23),
+                            TRAIN_L)
+    batch = {"states": ds.states[:TRAIN_B], "controls": ds.controls[:TRAIN_B],
+             "obs": {k: v[:TRAIN_B] for k, v in ds.observations.items()}}
+    for name, mi in (("DoorCrossmodalKalmanFilter", False), ("DoorKalmanFilter", True)):
+        gpu, cpu = kf_pair(DoorTask.model_types[name], device, seed=KF_WEIGHTS_SEED + 1)
+        out["classes"][name]["train_step_card_vs_cpu"] = step_card_vs_cpu(
+            gpu.train(), cpu.train(), batch, (), loops, optim, f"ekf_step_{name}",
+            measurement_initialize=mi)
+        out["classes"][name]["train_step_card_vs_cpu"]["measurement_initialize"] = mi
+
+    # run_eval on the door eval set (N=20, T=122), as eval_pipeline runs it.
+    with cli_workspace(env=EVAL_ENV, files=EVAL_FILES) as work:
+        for name in KF_CLASSES:
+            model, _ = kf_pair(DoorTask.model_types[name], device)
+            eval_helpers.configure(
+                buddy=Buddy(f"chip_smoke_{name}", model,
+                            log_dir=os.path.join(work.path, "logs"), verbose=False),
+                task=DoorTask, dataset_args=dict(EVAL_DATASET_ARGS))
+            states = _eval_batching.get_eval_batch()[0]
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = eval_helpers.run_eval()
+                r_mi = eval_helpers.run_eval(measurement_initialize=True)
+            check(np.isfinite(r["raw_rmse"]).all() and np.isfinite(r_mi["raw_rmse"]).all(),
+                  f"{name} run_eval {r['raw_rmse']} {r_mi['raw_rmse']}")
+            out["classes"][name]["run_eval"] = {
+                "N": int(states.shape[1]), "T": int(states.shape[0]),
+                "filter_steps_per_s": r["filter_steps_per_sec_e2e"],
+                "raw_rmse": r["raw_rmse"], "measurement_init_raw_rmse": r_mi["raw_rmse"]}
+    emit(out)
+    return out
+
+
+def phase_kf_train_cli(device, work) -> dict:
+    """The door train CLI's three KF curricula on the card (the crossmodal
+    KF, the unimodal KF, the plain EKF; the measurement-fusion classes share
+    the EKF's): each label the JAX curriculum saves, the metadata, finite
+    losses with the dynamics and virtual-sensor pretraining falling, frozen
+    parts bit for bit, child 1's dynamics equal to child 0's after each
+    checkpoint surgery, the trained RMSE finite and below the untrained
+    model's; then --resume of the crossmodal KF after deleting every
+    checkpoint past phase3-image. The models' weights come from numpy
+    (KF_CLI_WEIGHTS_SEED)."""
+    from multimodalfilter_tpu_torch.crossmodal import eval_helpers, train_helpers
+    from multimodalfilter_tpu_torch.experiments import Buddy
+
+    from multimodalfilter_tpu_torch.filtering import wrappers
+
+    modules = (train_helpers, eval_helpers, Buddy)
+    out = {"phase": "kf_train_cli", "units": 64, "weights_seed": KF_CLI_WEIGHTS_SEED,
+           "classes": {}}
+    real_init = wrappers.init_params
+    wrappers.init_params = lambda module, seed: numpy_weights(module, KF_CLI_WEIGHTS_SEED)
+    try:
+        kf_curricula(out, modules, device, work)
+    finally:
+        wrappers.init_params = real_init
+    emit(out)
+    return out
+
+
+def kf_curricula(out, modules, device, work) -> None:
+    """phase_kf_train_cli's runs, its results into `out`."""
+    import os
+
+    import numpy as np
+
+    from multimodalfilter_tpu_torch.crossmodal import eval_helpers, train_helpers
+    from multimodalfilter_tpu_torch.crossmodal.tasks import DoorTask
+    from multimodalfilter_tpu_torch.scripts.door_task import train_door
+
+    for name, (experiment, labels) in KF_CLI.items():
+        cls = DoorTask.model_types[name]
+        init = {k: v.cpu() for k, v in cls(device=device).params.state_dict().items()}
+        untrained = eval_rmse(eval_helpers, DoorTask, cls(device=device), work,
+                              f"untrained_{experiment}")
+        results, probe, wall_s = run_cli(
+            train_door, modules, ["--model-type", name, "--experiment-name", experiment], work)
+        trajs = train_helpers.trajectories
+        check([label for label, _ in probe.saves] == list(labels),
+              f"{name} checkpoints {probe.saves}")
+        ckpt = {label: checkpoint_params(work, experiment, label)["params"]
+                for label in labels}
+        with open(os.path.join(work.path, "metadata", f"{experiment}.json")) as f:
+            check(set(json.load(f)) == CLI_KEYS, f"{name} metadata keys")
+        series = metric_series(work, experiment)
+        bad = {k: int(np.argmin(np.isfinite(v))) for k, v in series.items()
+               if not np.isfinite(v).all()}
+        check(not bad, f"{name}: non-finite losses from these entries on: {bad}; calls "
+                       f"{[(c['name'], c['kwargs']) for c in probe.calls]}")
+        single, vs = series["train/dynamics_single_step"], series["train/virtual_sensor"]
+        vs_calls = [c["kwargs"]["epochs"] for c in probe.of("train_virtual_sensor")]
+        check(len(vs) == sum(vs_calls), f"{name} virtual sensor series {len(vs)}")
+        falling = {"dynamics_single_step": (single[0], single[-1])}
+        start = 0
+        for i, epochs in enumerate(vs_calls):
+            falling[f"virtual_sensor_{i}"] = (vs[start], vs[start + epochs - 1])
+            start += epochs
+        for what, (first, last) in falling.items():
+            check(last < first, f"{name} {what} loss did not fall: {first} -> {last}")
+
+        frozen = {}
+        if name == "DoorCrossmodalKalmanFilter":
+            gate = "crossmodal_weight_model."
+            frozen = {
+                "gate_is_init_in_phase0_to_3": all(same_under(ckpt[p], init, gate)
+                                                   for p in labels[:5]),
+                "gate_moved_in_phase4_freeze": not same_under(ckpt["phase4-freeze"], init, gate),
+                "filter_models_same_in_phase4_freeze": same_under(
+                    ckpt["phase4-freeze"], ckpt["phase3-force"], "filter_models."),
+            }
+        elif name == "DoorKalmanFilter":
+            frozen = {"dynamics_same_in_phase2_and_3": all(
+                same_under(ckpt[p], ckpt["phase1"], DYNAMICS) for p in ("phase2", "phase3"))}
+        check(all(frozen.values()), f"{name} frozen parts {frozen}")
+        surgery = {}
+        if name != "DoorKalmanFilter":
+            c0, c1 = CHILD_DYNAMICS.format(0), CHILD_DYNAMICS.format(1)
+
+            def child(params, prefix):
+                return {k[len(prefix):]: v for k, v in params.items() if k.startswith(prefix)}
+
+            surgery = {
+                "phase1_child1_is_phase0_child0": same_under(
+                    child(ckpt["phase1"], c1), child(ckpt["phase0"], c0), ""),
+                "phase2_child1_is_phase1_child0": same_under(
+                    child(ckpt["phase2"], c1), child(ckpt["phase1"], c0), ""),
+            }
+            check(all(surgery.values()), f"{name} surgery {surgery}")
+        # The state's RMSE over its three normalised dimensions, trained
+        # against untrained (one dimension alone may not improve on a short
+        # curriculum). The unimodal KF is held at its phase3 checkpoint, its
+        # children trained end to end: its last phase (measurement-
+        # initialised precision fusion) raises the RMSE again, on the card
+        # and on the CPU alike, to about the untrained model's (PERF.md).
+        def state_rmse(r):
+            return float(np.sqrt(np.mean(np.square(r["raw_rmse"]))))
+
+        trained, before = state_rmse(results), state_rmse(untrained)
+        held, held_rmse = "final", trained
+        if name == "DoorUnimodalKalmanFilter":
+            at_phase3 = cls(device=device)
+            at_phase3.params.load_state_dict(ckpt["phase3"])
+            held, held_rmse = "phase3", state_rmse(eval_rmse(
+                eval_helpers, DoorTask, at_phase3, work, f"{experiment}_phase3"))
+        check(np.isfinite(results["raw_rmse"]).all() and held_rmse < before,
+              f"{name} trained RMSE ({held}) {held_rmse} against untrained {before}; "
+              f"final {results['raw_rmse']}")
+        out["classes"][name] = rec = {
+            "experiment": experiment, "wall_s": wall_s, "checkpoints": list(labels),
+            "phase_wall_s": phase_walls(probe, labels), "losses_falling": falling,
+            "frozen": frozen, "surgery": surgery,
+            "rmse": {"state_rmse_untrained": before, "state_rmse_trained": trained,
+                     "held": held, "state_rmse_held": held_rmse,
+                     "untrained": {k: untrained[k] for k in ("raw_rmse", "theta_rmse_deg",
+                                                             "x_rmse_cm", "y_rmse_cm")},
+                     "trained": {k: results[k] for k in ("raw_rmse", "theta_rmse_deg",
+                                                         "x_rmse_cm", "y_rmse_cm")}},
+            "train_filter_steps_per_s": cli_train_rates(probe.of("train_e2e"), trajs),
+            "train_e2e_calls": len(probe.of("train_e2e")),
+            "log_evals": len(probe.of("log_eval"))}
+        emit({"phase": "kf_train_cli_class", "name": name, **rec})
+
+    # --resume of the crossmodal KF after every checkpoint past phase3-image.
+    experiment, labels = KF_CLI["DoorCrossmodalKalmanFilter"]
+    keep = labels.index("phase3-image") + 1
+    steps = checkpoint_params(work, experiment, "phase3-image")["steps"]
+    for label in labels[keep:]:
+        os.remove(os.path.join(work.path, "checkpoints", experiment, f"{label}.pt"))
+    results, probe, wall_s = run_cli(
+        train_door, modules, ["--model-type", "DoorCrossmodalKalmanFilter",
+                              "--experiment-name", experiment, "--resume"], work)
+    check(probe.restores == [("phase3-image", steps)], f"KF resume restores {probe.restores}")
+    check([label for label, _ in probe.saves] == list(labels[keep:]),
+          f"KF resume saves {probe.saves}")
+    e2e = probe.of("train_e2e")
+    check(len(e2e) == 10 and not probe.of("train_virtual_sensor")
+          and e2e[0]["kwargs"].get("optimizer_name") == "force_ekf",
+          f"KF resume train calls {[c['name'] for c in probe.calls]}")
+    check(np.isfinite(results["raw_rmse"]).all(), f"KF resume eval {results['raw_rmse']}")
+    out["resume"] = {"experiment": experiment, "wall_s": wall_s, "restored": probe.restores,
+                     "saves": [s for s, _ in probe.saves], "train_e2e_calls": len(e2e),
+                     "theta_rmse_deg": results["theta_rmse_deg"]}
+
+
 def serving_profile(model, device) -> dict:
     """Where the serving loop's time goes: one warm fused forward_loop at
     N=16, T=100, M=300 under torch.profiler (device busy share, B3's share
@@ -2893,6 +3327,13 @@ def main(argv=None) -> int:
         phase_s["resume"] = time.perf_counter() - t0 - phase_s["train_cli"]
         phase_lstm(door_models, fused_step, pf_kernels, pf_estimate, device, work, train_cli)
         phase_s["lstm"] = time.perf_counter() - t0 - sum(phase_s.values())
+    t0 = time.perf_counter()
+    with cli_workspace(env=KF_CLI_ENV) as work:
+        phase_kf_train_cli(device, work)
+    phase_s["kf_train_cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_ekf(door_models, device)
+    phase_s["ekf"] = time.perf_counter() - t0
     emit({"phase": "train_cli_phases_wall_s", **phase_s})
     times = phase_times(main_path["model"], pf_kernels, device)
     if old is not None:

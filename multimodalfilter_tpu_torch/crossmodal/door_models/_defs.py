@@ -1,5 +1,5 @@
-"""Door-task filter-def builders, state_dim 3, control_dim 7 (port of the PF
-part of ``crossmodal/door_models/_defs.py``).
+"""Door-task filter-def builders, state_dim 3, control_dim 7 (port of
+``crossmodal/door_models/_defs.py``).
 
 Process noise: DoorDynamicsModel Q_tril = diag(sqrt(.05, .01, .01));
 DoorDynamicsModelBrent divides it by 8.
@@ -8,10 +8,16 @@ DoorDynamicsModelBrent divides it by 8.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
-from ...filtering import DynamicsDef, MeasurementDef, PFWeightDef
-from ...models import DynamicsNet, LogLikelihoodNet, PFWeightNet
+from ...filtering import (
+    DynamicsDef,
+    KFWeightDef,
+    MeasurementDef,
+    PFWeightDef,
+    VirtualSensorDef,
+)
+from ...models import DynamicsNet, KFWeightNet, LogLikelihoodNet, PFWeightNet, VirtualSensorNet
 
 STATE_DIM = 3
 CONTROL_DIM = 7
@@ -41,6 +47,23 @@ def measurement_def(units: int = 64, modalities=ALL_MODALITIES, *,
                     device=None) -> MeasurementDef:
     return MeasurementDef(
         LogLikelihoodNet(STATE_DIM, _mods(modalities), units, device=device)
+    )
+
+
+def virtual_sensor_def(units: int = 64, modalities=ALL_MODALITIES,
+                       add_R_noise: float = 1e-6,
+                       noise_R_tril: Optional[Tuple[float, ...]] = None, *,
+                       device=None) -> VirtualSensorDef:
+    return VirtualSensorDef(
+        VirtualSensorNet(STATE_DIM, _mods(modalities), units, add_R_noise=add_R_noise,
+                         noise_R_tril_diag=noise_R_tril, device=device)
+    )
+
+
+def kf_weight_def(units: int = 64, state_dim: int = STATE_DIM, *,
+                  device=None) -> KFWeightDef:
+    return KFWeightDef(
+        KFWeightNet(state_dim=state_dim, modality_count=2, units=units, device=device)
     )
 
 

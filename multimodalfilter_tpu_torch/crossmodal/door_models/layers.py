@@ -1,0 +1,31 @@
+"""Door-task encoder factories and dimensions (port of
+``crossmodal/door_models/layers.py``). Each factory builds the port's encoder
+whose state-dict keys are the flax encoder's param names; unlike flax, a
+PyTorch layer needs its input width, which the dimensions below give."""
+
+from ...models import ImageEncoder, MLPEncoder
+
+state_dim = 3
+control_dim = 7
+obs_pos_dim = 3
+obs_sensors_dim = 7
+
+
+def state_layers(units: int, *, device=None) -> MLPEncoder:
+    return MLPEncoder(state_dim, units, device=device)
+
+
+def control_layers(units: int, *, device=None) -> MLPEncoder:
+    return MLPEncoder(control_dim, units, device=device)
+
+
+def observation_image_layers(units: int, *, device=None) -> ImageEncoder:
+    return ImageEncoder(units, device=device)
+
+
+def observation_pos_layers(units: int, *, device=None) -> MLPEncoder:
+    return MLPEncoder(obs_pos_dim, units, device=device)
+
+
+def observation_sensors_layers(units: int, *, device=None) -> MLPEncoder:
+    return MLPEncoder(obs_sensors_dim, units, device=device)

@@ -1,13 +1,22 @@
-"""Door-task filters (port of the PF and LSTM classes of
-``crossmodal/door_models/models.py``). Each is a ``StatefulFilter`` over a
-filter def, runs on ``device`` (default ``cuda``) and registers itself as a
-``--model-type`` choice by subclassing ``DoorTask.Filter``. The EKF classes
-and their component factories come with ROADMAP A9."""
+"""The ten door-task filters (port of ``crossmodal/door_models/models.py``):
+the particle filters, the Kalman filters and the LSTM baseline. Each is a
+``StatefulFilter`` over a filter def, runs on ``device`` (default ``cuda``)
+and registers itself as a ``--model-type`` choice by subclassing
+``DoorTask.Filter``."""
 
 from __future__ import annotations
 
 from ..._device import Device, resolve_device
-from ...filtering import CrossmodalPFMeasurementDef, LSTMFilterDef, ParticleFilterDef
+from ...filtering import (
+    CrossmodalKFDef,
+    CrossmodalPFMeasurementDef,
+    CrossmodalVirtualSensorDef,
+    LSTMFilterDef,
+    ParticleFilterDef,
+    UnimodalKFDef,
+    UnimodalVirtualSensorDef,
+    VirtualSensorEKFDef,
+)
 from ...filtering.wrappers import StatefulFilter
 from ...models import LSTMFilterNet
 from ..tasks import DoorTask
@@ -22,6 +31,8 @@ def DoorDynamicsModelBrent(units: int = 64, *, device=None):
 
 
 DoorMeasurementModel = _defs.measurement_def
+DoorVirtualSensorModel = _defs.virtual_sensor_def
+DoorCrossmodalKalmanFilterWeightModel = _defs.kf_weight_def
 DoorCrossmodalWeightModel = _defs.pf_weight_def
 
 
@@ -90,6 +101,100 @@ class DoorUnimodalParticleFilter(StatefulFilter, DoorTask.Filter):
                 ),
                 device,
             ),
+            device=device, seed=seed,
+        )
+
+
+def _ekf_def(virtual_sensor_model, device, dynamics_model=None) -> VirtualSensorEKFDef:
+    return VirtualSensorEKFDef(
+        dynamics_model=(dynamics_model if dynamics_model is not None
+                        else DoorDynamicsModel(device=device)),
+        virtual_sensor_model=virtual_sensor_model,
+        state_dim=_defs.STATE_DIM,
+    )
+
+
+def _two_virtual_sensors(device):
+    return (
+        DoorVirtualSensorModel(modalities={"image"}, device=device),
+        DoorVirtualSensorModel(modalities={"pos", "sensors"}, device=device),
+    )
+
+
+def _two_child_ekfs(device):
+    return tuple(_ekf_def(vs, device) for vs in _two_virtual_sensors(device))
+
+
+class DoorKalmanFilter(StatefulFilter, DoorTask.Filter):
+    """Virtual-sensor EKF over all modalities. Given components must be
+    built on the model's device."""
+
+    def __init__(self, dynamics_model=None, virtual_sensor_model=None, *,
+                 device: Device = None, seed: int = 0):
+        device = resolve_device(device)
+        if dynamics_model is None and virtual_sensor_model is None:
+            dynamics_model = DoorDynamicsModel(device=device)
+            virtual_sensor_model = DoorVirtualSensorModel(device=device)
+        super().__init__(_ekf_def(virtual_sensor_model, device, dynamics_model),
+                         device=device, seed=seed)
+
+
+class DoorCrossmodalKalmanFilter(StatefulFilter, DoorTask.Filter):
+    """Two child EKFs (image; pos+sensors) whose posteriors a learned
+    per-state-dim gate mixes."""
+
+    def __init__(self, know_image_blackout: bool = False, *,
+                 device: Device = None, seed: int = 0):
+        device = resolve_device(device)
+        super().__init__(
+            CrossmodalKFDef(
+                filter_models=_two_child_ekfs(device),
+                crossmodal_weight_model=DoorCrossmodalKalmanFilterWeightModel(
+                    device=device),
+                state_dim=_defs.STATE_DIM,
+                know_image_blackout=know_image_blackout,
+            ),
+            device=device, seed=seed,
+        )
+
+
+class DoorMeasurementCrossmodalKalmanFilter(StatefulFilter, DoorTask.Filter):
+    """One EKF over a gated fusion of two virtual sensors."""
+
+    def __init__(self, *, device: Device = None, seed: int = 0):
+        device = resolve_device(device)
+        super().__init__(
+            _ekf_def(
+                CrossmodalVirtualSensorDef(
+                    virtual_sensor_model=_two_virtual_sensors(device),
+                    crossmodal_weight_model=DoorCrossmodalKalmanFilterWeightModel(
+                        device=device),
+                ),
+                device,
+            ),
+            device=device, seed=seed,
+        )
+
+
+class DoorUnimodalKalmanFilter(StatefulFilter, DoorTask.Filter):
+    """Two independent per-modality EKFs fused by precision weighting."""
+
+    def __init__(self, *, device: Device = None, seed: int = 0):
+        device = resolve_device(device)
+        super().__init__(
+            UnimodalKFDef(filter_models=_two_child_ekfs(device), state_dim=_defs.STATE_DIM),
+            device=device, seed=seed,
+        )
+
+
+class DoorMeasurementUnimodalKalmanFilter(StatefulFilter, DoorTask.Filter):
+    """One EKF over a precision-weighted fusion of two virtual sensors."""
+
+    def __init__(self, *, device: Device = None, seed: int = 0):
+        device = resolve_device(device)
+        super().__init__(
+            _ekf_def(UnimodalVirtualSensorDef(virtual_sensor_model=_two_virtual_sensors(
+                device)), device),
             device=device, seed=seed,
         )
 

@@ -1,7 +1,7 @@
 """Training helpers (port of ``crossmodal/train_helpers.py``): module-global
 configuration (``configure(buddy=..., trajectories=...)``) and the
-curriculum primitives of the crossmodal particle filter, with the JAX
-package's signatures and defaults."""
+curriculum primitives of the door filters, with the JAX package's
+signatures and defaults."""
 
 from __future__ import annotations
 
@@ -82,6 +82,15 @@ def train_pf_measurement(*, epochs, batch_size, cov_scale=0.1):
     )
     return _train.train_pf_measurement(
         buddy, filter_model, dataset, epochs=epochs, batch_size=batch_size
+    )
+
+
+def train_virtual_sensor(*, epochs, batch_size=32, model=None,
+                         optimizer_name="train_virtual_sensor"):
+    model = model if model is not None else filter_model
+    return _train.train_virtual_sensor(
+        buddy, model, SingleStepDataset(trajectories=trajectories),
+        epochs=epochs, batch_size=batch_size, optimizer_name=optimizer_name,
     )
 
 

@@ -1,5 +1,4 @@
-"""Filter runtime base, the particle-filter pieces (port of
-``multimodalfilter_tpu/filtering/base.py``).
+"""Filter runtime base (port of ``multimodalfilter_tpu/filtering/base.py``).
 
 As in the JAX package, a *def* is a frozen dataclass of networks plus static
 config. Here the networks are ``nn.Module``s that own their parameters, so
@@ -11,6 +10,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import inspect
 from typing import Optional, Tuple
 
 import torch
@@ -98,6 +98,21 @@ class MeasurementDef:
         return self.net(states, features)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class VirtualSensorDef:
+    """Wraps a virtual sensor network: observations -> (z (N, D),
+    scale_tril (N, D, D))."""
+
+    net: nn.Module
+
+    def module(self) -> nn.Module:
+        return self.net
+
+    def apply(self, observations, enabled: Optional[Tuple[bool, ...]] = None):
+        del enabled  # one modality set; fusion is in fusion.py
+        return self.net(observations)
+
+
 class FilterDef(abc.ABC):
     """Abstract filter definition: ``initialize_beliefs`` and a one-step
     ``step`` over an explicit belief carry."""
@@ -117,3 +132,16 @@ class FilterDef(abc.ABC):
              enabled: Optional[Tuple[bool, ...]] = None, generator=None):
         """One filter timestep: returns (new_belief, state_estimate (N, D))."""
         ...
+
+
+def measurement_initialize(definition, observations, *, enabled, train: bool):
+    """``definition``'s belief from one frame's `observations` alone (the
+    Kalman filters' virtual sensors). A def whose method takes ``enabled``
+    (the fusion filters) gets it; the plain EKF's takes none, as the JAX
+    facade's ``TypeError`` fallback gives it none."""
+    fn = getattr(definition, "measurement_initialize_beliefs", None)
+    if fn is None:
+        raise AttributeError(f"{type(definition).__name__} does not support "
+                             "measurement initialization")
+    kwargs = {"enabled": enabled} if "enabled" in inspect.signature(fn).parameters else {}
+    return fn(observations, train=train, **kwargs)

@@ -1,4 +1,4 @@
-"""Stateful filter facade, the particle-filter subset (port of
+"""Stateful filter facade (port of
 ``multimodalfilter_tpu/filtering/wrappers.py``).
 
 ``StatefulFilter`` holds a filter def, its parameters (``params``: the
@@ -8,8 +8,9 @@ module tree whose state-dict keys are the flax param paths, loadable with
 set of frozen parameter paths and the set of loop configurations already
 run (``loop_cache_key``, which the eval's warm-up reads). ``ModuleHandle``
 is a view of a submodule
-(``filter_model.measurement_model.crossmodal_weight_model``): its dotted
-path and sub-def, which is what the train loops and ``freeze_module`` need.
+(``filter_model.measurement_model.crossmodal_weight_model``,
+``filter_model.filter_models[0].dynamics_model``): its dotted path and
+sub-def, which is what the train loops and ``freeze_module`` need.
 ``apply_serving_knobs`` reads the ``MMF_TPU_*`` serving knobs.
 """
 
@@ -22,8 +23,30 @@ from typing import Any, List, Optional, Tuple
 import torch
 
 from .._device import Device, resolve_device
+from ..types import GaussianBelief
 from ..utils.precision import with_fused_step
 from ..weights import init_params, load_jax_params
+from .base import measurement_initialize
+
+# Tuple fields of the fused per-modality models (the reference's
+# nn.ModuleLists).
+_FUSION_FIELDS = ("filter_models", "measurement_models", "virtual_sensor_model")
+
+
+def _fusion_count(definition) -> Optional[int]:
+    """Number of fused per-modality models, searching the def tree (a PF
+    whose measurement model is a crossmodal fusion; an EKF whose virtual
+    sensor is one)."""
+    if not dataclasses.is_dataclass(definition):
+        return None
+    for field in dataclasses.fields(definition):
+        value = getattr(definition, field.name)
+        if field.name in _FUSION_FIELDS and isinstance(value, tuple):
+            return len(value)
+        nested = _fusion_count(value)
+        if nested is not None:
+            return nested
+    return None
 
 
 def _join(path: str, name: str) -> str:
@@ -156,10 +179,9 @@ class StatefulFilter:
         # discarded loop before it times a new one.
         self._loops_run: set = set()
         self.frozen_paths: set = set()
-        # The fused models of a crossmodal measurement model (none for a
-        # plain PF, or for the LSTM, which has no measurement model).
-        count = len(getattr(getattr(definition, "measurement_model", None),
-                            "measurement_models", ()))
+        # The fused per-modality models (none for a plain PF or EKF, or for
+        # the LSTM).
+        count = _fusion_count(definition)
         self._enabled_models: Optional[List[bool]] = [True] * count if count else None
 
     # -- mode / config ------------------------------------------------------
@@ -196,28 +218,33 @@ class StatefulFilter:
         return self.definition.state_dim
 
     def _gate(self):
-        """The crossmodal gate's def, or None (no gate, or no measurement
+        """The crossmodal PF gate's def, or None (no gate, or no measurement
         model)."""
         mm = getattr(self.definition, "measurement_model", None)
         return getattr(mm, "crossmodal_weight_model", None)
 
     @property
     def know_image_blackout(self) -> bool:
+        """The def's own flag (the crossmodal KF), else its PF gate's."""
+        if hasattr(self.definition, "know_image_blackout"):
+            return self.definition.know_image_blackout
         gate = self._gate()
         return bool(gate is not None and gate.know_image_blackout)
 
     @know_image_blackout.setter
     def know_image_blackout(self, value: bool):
         """Scripts flip this after construction
-        (``scripts/door_task/train_door.py:73``); defs are frozen, so the def is rebuilt with the flag. Its networks, and so
-        ``params``, are kept. A def with no gate ignores it, as in JAX."""
-        gate = self._gate()
-        if gate is not None:
-            mm = self.definition.measurement_model
+        (``scripts/door_task/train_door.py:73``); defs are frozen, so the def
+        is rebuilt with the flag. Its networks, and so ``params``, are kept.
+        A def with neither the flag nor a gate ignores it, as in JAX."""
+        defn, gate = self.definition, self._gate()
+        if hasattr(defn, "know_image_blackout"):
+            self.definition = dataclasses.replace(defn, know_image_blackout=value)
+        elif gate is not None:
             self.definition = dataclasses.replace(
-                self.definition,
+                defn,
                 measurement_model=dataclasses.replace(
-                    mm, crossmodal_weight_model=dataclasses.replace(
+                    defn.measurement_model, crossmodal_weight_model=dataclasses.replace(
                         gate, know_image_blackout=value)),
             )
         self._loops_run.clear()
@@ -267,6 +294,15 @@ class StatefulFilter:
                 train=self._training, generator=self.generator,
             )
 
+    def measurement_initialize_beliefs(self, observations):
+        """The belief from one frame's observations (dict of (N, ...))
+        alone: the Kalman filters' virtual sensors, under the enabled
+        modalities where the def fuses them."""
+        with torch.no_grad():
+            self._belief = measurement_initialize(
+                self.definition, self._to_device(observations),
+                enabled=self._enabled_tuple, train=self._training)
+
     def forward(self, *, observations, controls, eps=None, uniforms=None):
         """One filter step: observations dict of (N, ...), controls (N, C).
         Returns the estimate (N, D) and keeps the new belief. Pre-drawn
@@ -299,6 +335,19 @@ class StatefulFilter:
         )
         self._loops_run.add(self.loop_cache_key(estimates.shape[1]))
         return estimates
+
+    # -- Kalman filter surface -------------------------------------------------
+    @property
+    def state_covariance_estimate(self):
+        """The fused covariance of a Gaussian belief (the crossmodal KF's,
+        or a plain EKF's); None for other beliefs."""
+        if isinstance(self._belief, GaussianBelief):
+            return self._belief.cov
+        return None
+
+    @property
+    def weighted_covariances(self):
+        return self.state_covariance_estimate
 
 
 def _root_and_path(module):

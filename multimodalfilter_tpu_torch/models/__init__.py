@@ -3,16 +3,19 @@ from .resblocks import Conv2dResblock, LinearResblock
 from .task_nets import (
     MODALITY_ORDER,
     DynamicsNet,
+    KFWeightNet,
     LogLikelihoodNet,
     LSTMFilterNet,
     OptimizedLSTMCell,
     PFWeightNet,
+    VirtualSensorNet,
 )
 
 __all__ = [
     "Conv2dResblock",
     "DynamicsNet",
     "ImageEncoder",
+    "KFWeightNet",
     "LinearResblock",
     "LogLikelihoodNet",
     "LSTMFilterNet",
@@ -20,4 +23,5 @@ __all__ = [
     "MODALITY_ORDER",
     "OptimizedLSTMCell",
     "PFWeightNet",
+    "VirtualSensorNet",
 ]

@@ -1,6 +1,7 @@
 """Task networks (port of ``multimodalfilter_tpu/models/task_nets.py``): the
 observation encoders, ``DynamicsNet``, ``LogLikelihoodNet`` and
-``PFWeightNet`` of the particle filters, and the LSTM baseline's
+``PFWeightNet`` of the particle filters, ``VirtualSensorNet`` and
+``KFWeightNet`` of the Kalman filters, and the LSTM baseline's
 ``LSTMFilterNet`` with its cell, ``OptimizedLSTMCell``.
 
 Attribute names are the flax scope names, so the state-dict keys of each net
@@ -11,7 +12,7 @@ gripper_sensors 7).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -179,6 +180,110 @@ class PFWeightNet(nn.Module):
         for i in range(self.num_fusion_resblocks):
             x = getattr(self, f"fusion_resblock{i}")(x)
         return self.fusion_dense_out(x)
+
+
+class VirtualSensorNet(nn.Module):
+    """Virtual sensor: observations -> (predicted state z (N, D), diagonal
+    scale_tril (N, D, D)).
+
+    A shared trunk of width 2*units splits into the z head (first half) and
+    the r head (second half); cov = diag(lt_hat)^2 + add_R_noise * I, and
+    the scale_tril is its square root. With ``noise_R_tril_diag`` the r head
+    is absent and lt_hat is that constant."""
+
+    def __init__(self, state_dim: int, modalities: Sequence[str] = MODALITY_ORDER,
+                 units: int = 64, add_R_noise: float = 1e-6,
+                 spanning_avg_pool: bool = False,
+                 noise_R_tril_diag: Optional[Sequence[float]] = None, *, device=None):
+        super().__init__()
+        if spanning_avg_pool:
+            raise NotImplementedError(
+                "the spanning-average-pool image encoder is the push task's, which "
+                "the PyTorch port does not have yet (ROADMAP A11)"
+            )
+        self.state_dim = state_dim
+        self.units = units
+        self.add_R_noise = add_R_noise
+        self.obs_encoders = _ObservationEncoders(units, modalities, device=device)
+        self.shared_dense_in = nn.Linear(self.obs_encoders.out_features, 2 * units,
+                                         device=device)
+        self.shared_resblock0 = LinearResblock(2 * units, device=device)
+        self.shared_resblock1 = LinearResblock(2 * units, device=device)
+        heads = ("z_layer",) if noise_R_tril_diag is not None else ("z_layer", "r_layer")
+        for head in heads:
+            self.add_module(f"{head}_dense_in", nn.Linear(units, state_dim, device=device))
+            self.add_module(f"{head}_resblock", LinearResblock(state_dim, device=device))
+            self.add_module(f"{head}_dense_out",
+                            nn.Linear(state_dim, state_dim, device=device))
+        self.register_buffer(
+            "noise_R_tril_diag",
+            None if noise_R_tril_diag is None else torch.tensor(
+                noise_R_tril_diag, dtype=torch.float32, device=device),
+            persistent=False,
+        )
+
+    def _head(self, name: str, x):
+        x = torch.relu(getattr(self, f"{name}_dense_in")(x))
+        x = getattr(self, f"{name}_resblock")(x)
+        return getattr(self, f"{name}_dense_out")(x)
+
+    def forward(self, observations):
+        x = torch.relu(self.shared_dense_in(self.obs_encoders(observations)))
+        x = self.shared_resblock1(self.shared_resblock0(x))
+        z = self._head("z_layer", x[:, : self.units])
+        if self.noise_R_tril_diag is None:
+            lt_hat = self._head("r_layer", x[:, self.units:])
+        else:
+            lt_hat = self.noise_R_tril_diag.to(x.dtype).expand(x.shape[0], self.state_dim)
+        scale_tril = torch.diag_embed(torch.sqrt(lt_hat ** 2 + self.add_R_noise))
+        return z, scale_tril
+
+
+class KFWeightNet(nn.Module):
+    """Crossmodal KF gate: observations -> per-state-dim weights
+    (modality_count, N, state_dim), normalised over the modalities.
+
+    ``weighting_type`` is "sigmoid" (the reference's), "softmax" or
+    "absolute". ``reference_reshape=False`` (the default) takes the gate
+    output (N, K*D) to (K, N, D) through (N, K, D), so a row's weights are
+    its own; True reshapes it row-major straight to (K, N, D), as the
+    reference does, which mixes weights across the batch (to reproduce a
+    reference checkpoint's outputs at N > 1)."""
+
+    WEIGHTING_TYPES = ("sigmoid", "softmax", "absolute")
+
+    def __init__(self, state_dim: int, modality_count: int = 2, units: int = 64,
+                 weighting_type: str = "sigmoid", reference_reshape: bool = False, *,
+                 device=None):
+        super().__init__()
+        if weighting_type not in self.WEIGHTING_TYPES:
+            raise ValueError(f"weighting_type {weighting_type!r} not in "
+                             f"{self.WEIGHTING_TYPES}")
+        self.state_dim = state_dim
+        self.modality_count = modality_count
+        self.weighting_type = weighting_type
+        self.reference_reshape = reference_reshape
+        self.obs_encoders = _ObservationEncoders(units, MODALITY_ORDER, device=device)
+        self.fusion_dense_in = nn.Linear(self.obs_encoders.out_features, units,
+                                         device=device)
+        self.fusion_resblock0 = LinearResblock(units, device=device)
+        self.fusion_dense_out = nn.Linear(units, modality_count * state_dim, device=device)
+
+    def forward(self, observations):
+        x = torch.relu(self.fusion_dense_in(self.obs_encoders(observations)))
+        x = self.fusion_dense_out(self.fusion_resblock0(x))
+        if self.weighting_type == "sigmoid":
+            x = torch.sigmoid(x)
+        n, k, d = x.shape[0], self.modality_count, self.state_dim
+        if self.reference_reshape:
+            weights = x.reshape(k, n, d)
+        else:
+            weights = x.reshape(n, k, d).transpose(0, 1)
+        if self.weighting_type == "absolute":
+            weights = weights.abs()
+        elif self.weighting_type == "softmax":
+            weights = torch.softmax(weights, dim=0)
+        return weights / (weights.sum(dim=0) + 1e-9)
 
 
 class OptimizedLSTMCell(nn.Module):

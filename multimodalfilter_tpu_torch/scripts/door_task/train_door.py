@@ -103,8 +103,8 @@ def main(argv=None, *, cache_dir: Optional[str] = None) -> Dict[str, float]:
 
 
 def run_curriculum(filter_model, buddy, train_helpers, eval_helpers):
-    """The per-class curricula (scripts/door_task/train_door.py:125-256 of
-    the JAX package); the EKF classes' come with ROADMAP A9."""
+    """The per-class curricula (scripts/door_task/train_door.py:125-427 of
+    the JAX package)."""
     dm = door_models
 
     if isinstance(filter_model, dm.DoorLSTMFilter):
@@ -235,8 +235,207 @@ def run_curriculum(filter_model, buddy, train_helpers, eval_helpers):
             eval_helpers.log_eval()
         buddy.save_checkpoint("phase3")
 
+    elif isinstance(filter_model, dm.DoorCrossmodalKalmanFilter):
+        image_model = filter_model.filter_models[0]
+        force_model = filter_model.filter_models[1]
+
+        freeze_module(filter_model.crossmodal_weight_model)
+
+        train_helpers.train_pf_dynamics_single_step(epochs=5, model=image_model)
+        buddy.save_checkpoint("phase0")
+        buddy.load_checkpoint_module(
+            source="filter_models.0.dynamics_model",
+            target="filter_models.1.dynamics_model",
+            label="phase0",
+        )
+
+        train_helpers.train_pf_dynamics_recurrent(
+            subsequence_length=4, epochs=5, model=image_model
+        )
+        train_helpers.train_pf_dynamics_recurrent(
+            subsequence_length=8, epochs=5, model=image_model
+        )
+        train_helpers.train_pf_dynamics_recurrent(
+            subsequence_length=16, epochs=5, model=image_model
+        )
+        buddy.save_checkpoint("phase1")
+        buddy.load_checkpoint_module(
+            source="filter_models.0.dynamics_model",
+            target="filter_models.1.dynamics_model",
+            label="phase1",
+        )
+
+        train_helpers.train_virtual_sensor(epochs=5, batch_size=64, model=image_model)
+        train_helpers.train_virtual_sensor(epochs=5, batch_size=64, model=force_model)
+        buddy.save_checkpoint("phase2")
+
+        # Pre-train each child EKF end-to-end with named optimizers.
+        filter_model.enabled_models = [True, False]
+        for length, epochs in ((4, 3), (8, 3), (16, 5)):
+            train_helpers.train_e2e(
+                subsequence_length=length, epochs=epochs, batch_size=32,
+                optimizer_name="image_ekf",
+            )
+            eval_helpers.log_eval()
+        buddy.save_checkpoint("phase3-image")
+
+        filter_model.enabled_models = [False, True]
+        for length, epochs in ((4, 3), (8, 3), (16, 5)):
+            train_helpers.train_e2e(
+                subsequence_length=length, epochs=epochs, batch_size=32,
+                optimizer_name="force_ekf",
+            )
+            eval_helpers.log_eval()
+        buddy.save_checkpoint("phase3-force")
+
+        filter_model.enabled_models = [True, True]
+        unfreeze_module(filter_model.crossmodal_weight_model)
+        freeze_module(filter_model.filter_models)
+        train_helpers.train_e2e(
+            subsequence_length=3, epochs=1, batch_size=32, optimizer_name="freeze_ekf"
+        )
+        buddy.save_checkpoint("phase4-freeze")
+
+        unfreeze_module(filter_model.filter_models)
+        train_helpers.train_e2e(
+            subsequence_length=3, epochs=5, batch_size=32, measurement_initialize=False
+        )
+        eval_helpers.log_eval()
+        buddy.save_checkpoint("phase4-length3")
+        for _ in range(3):
+            train_helpers.train_e2e(
+                subsequence_length=4, epochs=5, batch_size=32,
+                measurement_initialize=False,
+            )
+            eval_helpers.log_eval()
+        buddy.save_checkpoint("phase4-length4")
+        for _ in range(2):
+            train_helpers.train_e2e(
+                subsequence_length=6, epochs=5, batch_size=32,
+                measurement_initialize=False,
+            )
+            eval_helpers.log_eval()
+            print("kalman e2e")
+        buddy.save_checkpoint("phase4-done")
+
+    elif isinstance(
+        filter_model,
+        (dm.DoorMeasurementCrossmodalKalmanFilter, dm.DoorMeasurementUnimodalKalmanFilter),
+    ):
+        # The measurement-fusion EKFs share the plain EKF's curriculum.
+        _ekf_curriculum(filter_model, buddy, train_helpers, eval_helpers)
+
+    elif isinstance(filter_model, dm.DoorUnimodalKalmanFilter):
+        image_model = filter_model.filter_models[0]
+        force_model = filter_model.filter_models[1]
+
+        train_helpers.train_pf_dynamics_single_step(epochs=5, model=image_model)
+        buddy.save_checkpoint("phase0")
+        buddy.load_checkpoint_module(
+            source="filter_models.0.dynamics_model",
+            target="filter_models.1.dynamics_model",
+            label="phase0",
+        )
+        train_helpers.train_pf_dynamics_recurrent(
+            subsequence_length=4, epochs=5, model=image_model
+        )
+        train_helpers.train_pf_dynamics_recurrent(
+            subsequence_length=8, epochs=5, model=image_model
+        )
+        train_helpers.train_pf_dynamics_recurrent(
+            subsequence_length=16, epochs=5, model=image_model
+        )
+        buddy.save_checkpoint("phase1")
+        buddy.load_checkpoint_module(
+            source="filter_models.0.dynamics_model",
+            target="filter_models.1.dynamics_model",
+            label="phase1",
+        )
+
+        train_helpers.train_virtual_sensor(epochs=3, batch_size=64, model=image_model)
+        train_helpers.train_virtual_sensor(epochs=3, batch_size=64, model=force_model)
+        buddy.save_checkpoint("phase2")
+
+        filter_model.enabled_models = [True, False]
+        train_helpers.train_e2e(subsequence_length=4, epochs=3, batch_size=32)
+        eval_helpers.log_eval()
+        train_helpers.train_e2e(subsequence_length=8, epochs=3, batch_size=32)
+        eval_helpers.log_eval()
+        print("kalman image")
+        train_helpers.train_e2e(subsequence_length=16, epochs=5, batch_size=32)
+
+        filter_model.enabled_models = [False, True]
+        train_helpers.train_e2e(subsequence_length=4, epochs=3, batch_size=32)
+        eval_helpers.log_eval()
+        train_helpers.train_e2e(subsequence_length=8, epochs=3, batch_size=32)
+        eval_helpers.log_eval()
+        train_helpers.train_e2e(subsequence_length=16, epochs=5, batch_size=32)
+        print("kalman force")
+        eval_helpers.log_eval()
+        buddy.save_checkpoint("phase3")
+
+        filter_model.enabled_models = [True, True]
+        freeze_module(filter_model.filter_models)
+        train_helpers.train_e2e(subsequence_length=4, epochs=1, batch_size=32)
+        unfreeze_module(filter_model.filter_models)
+
+        train_helpers.train_e2e(
+            subsequence_length=3, epochs=5, batch_size=32, measurement_initialize=True
+        )
+        eval_helpers.log_eval()
+        for _ in range(3):
+            train_helpers.train_e2e(
+                subsequence_length=4, epochs=5, batch_size=32,
+                measurement_initialize=True,
+            )
+            eval_helpers.log_eval()
+        buddy.save_checkpoint("phase4-length4")
+        for _ in range(2):
+            train_helpers.train_e2e(
+                subsequence_length=6, epochs=5, batch_size=32,
+                measurement_initialize=True,
+            )
+            eval_helpers.log_eval()
+            print("kalman e2e")
+        buddy.save_checkpoint("phase4-final")
+
+    elif isinstance(filter_model, dm.DoorKalmanFilter):
+        _ekf_curriculum(filter_model, buddy, train_helpers, eval_helpers)
+
     else:
         assert False, "No training curriculum found for model type"
+
+
+def _ekf_curriculum(filter_model, buddy, train_helpers, eval_helpers):
+    """The plain virtual-sensor EKF's curriculum, which the measurement-fusion
+    EKFs share."""
+    train_helpers.train_pf_dynamics_single_step(epochs=10)
+    buddy.save_checkpoint("phase0")
+    train_helpers.train_pf_dynamics_recurrent(subsequence_length=4, epochs=5)
+    train_helpers.train_pf_dynamics_recurrent(subsequence_length=8, epochs=5)
+    train_helpers.train_pf_dynamics_recurrent(subsequence_length=16, epochs=5)
+    eval_helpers.log_eval()
+    buddy.save_checkpoint("phase1")
+
+    freeze_module(filter_model.dynamics_model)
+    train_helpers.train_virtual_sensor(epochs=10, batch_size=64)
+    eval_helpers.log_eval()
+    buddy.save_checkpoint("phase2")
+
+    train_helpers.train_e2e(
+        subsequence_length=4, epochs=5, batch_size=32, measurement_initialize=True
+    )
+    eval_helpers.log_eval()
+    train_helpers.train_e2e(
+        subsequence_length=8, epochs=5, batch_size=32, measurement_initialize=True
+    )
+    eval_helpers.log_eval()
+    for _ in range(4):
+        train_helpers.train_e2e(
+            subsequence_length=16, epochs=5, batch_size=32, measurement_initialize=True
+        )
+        eval_helpers.log_eval()
+    buddy.save_checkpoint("phase3")
 
 
 if __name__ == "__main__":

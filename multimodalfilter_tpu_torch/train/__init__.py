@@ -5,6 +5,7 @@ from .loops import (
     train_dynamics_single_step,
     train_e2e,
     train_pf_measurement,
+    train_virtual_sensor,
 )
 from .optim import get_named_optimizer, make_optimizer, zero_frozen_grads
 
@@ -15,5 +16,6 @@ __all__ = [
     "train_dynamics_single_step",
     "train_e2e",
     "train_pf_measurement",
+    "train_virtual_sensor",
     "zero_frozen_grads",
 ]

@@ -16,9 +16,13 @@
 Losses:
   dynamics single-step / recurrent: MSE of predicted vs true next states
   measurement pretraining:          MSE of predicted vs Gaussian log-density
+  virtual sensor pretraining:       MSE of the virtual sensor's z vs the
+                                    true state
   e2e filter:                       MSE of filter estimates vs true states
                                     (beliefs initialised at the true first
-                                    state with initial_cov_scale * I)
+                                    state with initial_cov_scale * I, or
+                                    from the first frame's observations
+                                    with measurement_initialize)
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from ..filtering import base as _base
 from .optim import apply_gradients, get_named_optimizer
 
 
@@ -187,17 +192,40 @@ def train_pf_measurement(
                        batch_size=batch_size, loss_name="pf_measurement")
 
 
+def train_virtual_sensor(
+    buddy, model, dataset, *, epochs, batch_size=32,
+    optimizer_name="train_virtual_sensor",
+):
+    """Pretrain a Kalman filter's virtual sensor to regress the true state
+    from the observations (the enabled modalities reach a fusion sensor)."""
+    root, defn = _model_parts(model)
+    vs = defn.virtual_sensor_model
+    enabled = root._enabled_tuple
+
+    def loss_fn(batch):
+        z, _ = vs.apply(batch["obs"], enabled=enabled)
+        return torch.mean((z - batch["next"]) ** 2)
+
+    data = _to_device({"next": dataset.states, "obs": dataset.observations}, root.device)
+    step = _make_step(buddy, root, loss_fn, optimizer_name)
+    return _run_epochs(buddy, root, step, data, len(dataset), epochs=epochs,
+                       batch_size=batch_size, loss_name="virtual_sensor")
+
+
 # ---------------------------------------------------------------------------
 # End-to-end filter training (BPTT through the filter loop)
 # ---------------------------------------------------------------------------
 
 
-def e2e_loss(defn, batch, *, enabled, initial_cov_scale, generator):
+def e2e_loss(defn, batch, *, enabled, initial_cov_scale, generator,
+             measurement_initialize=False):
     """The e2e loss of one batch (JAX loops.py:387-413): beliefs at the true
-    first state with initial_cov_scale * I, the train-mode filter loop over
-    the remaining L-1 steps, then the MSE of the estimates. A particle
-    filter's noise (the initial particles' and each step's) comes from
-    ``draw_noise``; a def without particles (the LSTM) draws nothing."""
+    first state with initial_cov_scale * I (or, with
+    `measurement_initialize`, from the first frame's observations), the
+    train-mode filter loop over the remaining L-1 steps, then the MSE of the
+    estimates. A particle filter's noise (the initial particles' and each
+    step's) comes from ``draw_noise``; a def without particles (the Kalman
+    filters, the LSTM) draws nothing."""
     states = _time_major(batch["states"])  # (L, B, D)
     controls = _time_major(batch["controls"])
     obs = _time_major(batch["obs"])
@@ -208,9 +236,13 @@ def e2e_loss(defn, batch, *, enabled, initial_cov_scale, generator):
         init_noise["eps"], loop_noise["eps_seq"] = draw_noise(
             generator, ((b, m, d), (seq_len - 1, b * m, d)), states.device
         )
-    cov = torch.eye(d, dtype=states.dtype, device=states.device) * initial_cov_scale
-    cov = cov.expand(b, d, d)
-    belief = defn.initialize_beliefs(states[0], cov, train=True, **init_noise)
+    if measurement_initialize:
+        belief = _base.measurement_initialize(defn, {k: v[0] for k, v in obs.items()},
+                                              enabled=enabled, train=True)
+    else:
+        cov = torch.eye(d, dtype=states.dtype, device=states.device) * initial_cov_scale
+        belief = defn.initialize_beliefs(states[0], cov.expand(b, d, d), train=True,
+                                         **init_noise)
     _, estimates = defn.forward_loop(
         belief, {k: v[1:] for k, v in obs.items()}, controls[1:], train=True,
         enabled=enabled, **loop_noise,
@@ -230,17 +262,13 @@ def train_e2e(
         raise NotImplementedError(
             "data-parallel and pipelined training are not ported yet (ROADMAP A13)"
         )
-    if measurement_initialize:
-        raise NotImplementedError(
-            "measurement_initialize needs measurement_initialize_beliefs, which "
-            "only the EKF family has (not ported yet, ROADMAP A9)"
-        )
     root, defn = _model_parts(model)
     enabled = root._enabled_tuple
 
     def loss_fn(batch):
         return e2e_loss(defn, batch, enabled=enabled,
-                        initial_cov_scale=initial_cov_scale, generator=root.generator)
+                        initial_cov_scale=initial_cov_scale, generator=root.generator,
+                        measurement_initialize=measurement_initialize)
 
     data = _to_device({"states": dataset.states, "controls": dataset.controls,
                        "obs": dataset.observations}, root.device)

@@ -26,3 +26,11 @@ class ParticleBelief(NamedTuple):
 
     particles: torch.Tensor
     log_weights: torch.Tensor
+
+
+class GaussianBelief(NamedTuple):
+    """Kalman filter belief: mean (N, state_dim), cov (N, state_dim,
+    state_dim)."""
+
+    mean: torch.Tensor
+    cov: torch.Tensor

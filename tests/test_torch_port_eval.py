@@ -113,10 +113,13 @@ def configured(data_dir, models, tmp_path, monkeypatch):
 
 
 def test_registry_holds_the_four_door_pfs():
-    """The four door PFs, and since the LSTM baseline was ported, it too."""
-    assert sorted(DoorTask.model_types) == [
-        "DoorCrossmodalParticleFilter", "DoorCrossmodalParticleFilterSeq5",
-        "DoorLSTMFilter", "DoorParticleFilter", "DoorUnimodalParticleFilter"]
+    """The four door PFs, and since the LSTM baseline and the Kalman filters
+    were ported, every JAX door class."""
+    assert sorted(DoorTask.model_types) == sorted(JaxDoorTask.model_types) == [
+        "DoorCrossmodalKalmanFilter", "DoorCrossmodalParticleFilter",
+        "DoorCrossmodalParticleFilterSeq5", "DoorKalmanFilter", "DoorLSTMFilter",
+        "DoorMeasurementCrossmodalKalmanFilter", "DoorMeasurementUnimodalKalmanFilter",
+        "DoorParticleFilter", "DoorUnimodalKalmanFilter", "DoorUnimodalParticleFilter"]
     for name, cls in DoorTask.model_types.items():
         assert cls is getattr(tdoor, name)
         assert cls.__name__ in JaxDoorTask.model_types

@@ -376,6 +376,15 @@ class PortFakeBuddy(_FakeBuddy):
             raise FileNotFoundError(experiment_name)
 
 
+def _handle_path(value):
+    """A submodule handle (``model=filter_model.filter_models[0]``) by its
+    dotted path, which both packages' handles carry; other values as they
+    are."""
+    if hasattr(value, "root") and hasattr(value, "path"):
+        return ("handle", value.path)
+    return value
+
+
 class _Recorder:
     """A helper module whose every function logs its name and kwargs with
     the model's enabled modalities and frozen paths at the call."""
@@ -386,6 +395,7 @@ class _Recorder:
     def __getattr__(self, name):
         def record(*args, **kwargs):
             assert not args, f"{name} called with positional arguments {args}"
+            kwargs = {k: _handle_path(v) for k, v in kwargs.items()}
             self.log.append((self.kind, name, kwargs, _model_state(self.model)))
         return record
 
@@ -435,10 +445,11 @@ def _reset(model):
 
 @pytest.fixture(scope="module")
 def door_models():
-    """(JAX, port) models of the two PF curricula with phase checkpoints and
-    surgery, the JAX init traced (eval_shape) rather than compiled: the
+    """(JAX, port) models of the PF and KF curricula with phase checkpoints
+    and surgery, the JAX init traced (eval_shape) rather than compiled: the
     curricula never read a parameter."""
-    names = ("DoorParticleFilter", "DoorCrossmodalParticleFilter")
+    names = ("DoorParticleFilter", "DoorCrossmodalParticleFilter",
+             "DoorCrossmodalKalmanFilter", "DoorUnimodalKalmanFilter")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jwrappers.jax, "jit", lambda fn: lambda *a: jax.eval_shape(fn, *a))
         return {n: (JaxDoorTask.model_types[n](), DoorTask.model_types[n](device="cpu"))
@@ -447,6 +458,9 @@ def door_models():
 
 PF_LABELS = ["phase0", "phase1", "phase2", "phase3"]
 CROSSMODAL_LABELS = ["phase1", "phase2", "phase3", "phase4"]
+CMKF_LABELS = ["phase0", "phase1", "phase2", "phase3-image", "phase3-force",
+               "phase4-freeze", "phase4-length3", "phase4-length4", "phase4-done"]
+UKF_LABELS = ["phase0", "phase1", "phase2", "phase3", "phase4-length4", "phase4-final"]
 EDGE_LABELS = ["a", "b", "c", "d"]
 
 RESUME_CASES = [
@@ -463,6 +477,18 @@ RESUME_CASES = [
     ("DoorCrossmodalParticleFilter", CROSSMODAL_LABELS[:3], False),
     ("DoorCrossmodalParticleFilter", CROSSMODAL_LABELS, False),
     ("DoorCrossmodalParticleFilter", CROSSMODAL_LABELS, True),
+    # The KF curricula: surgery between the children after phases 0 and 1,
+    # enabled switches, freezes of the tuple field filter_models.
+    ("DoorCrossmodalKalmanFilter", [], False),
+    ("DoorCrossmodalKalmanFilter", CMKF_LABELS[:1], False),
+    ("DoorCrossmodalKalmanFilter", CMKF_LABELS[:4], False),
+    ("DoorCrossmodalKalmanFilter", CMKF_LABELS[:6], False),
+    ("DoorCrossmodalKalmanFilter", CMKF_LABELS, False),
+    ("DoorCrossmodalKalmanFilter", CMKF_LABELS[1:], False),
+    ("DoorUnimodalKalmanFilter", [], False),
+    ("DoorUnimodalKalmanFilter", UKF_LABELS[:2], False),
+    ("DoorUnimodalKalmanFilter", UKF_LABELS[:4], False),
+    ("DoorUnimodalKalmanFilter", UKF_LABELS, False),
 ]
 for third, tail in (("c", "eval"), ("a", "eval"), (None, "eval"), ("c", "surgery"), ("c", "none")):
     RESUME_CASES += [

@@ -1,6 +1,6 @@
 """The port's door train CLI (``scripts/door_task/train_door.py``) against the
-JAX package's on the CPU: the curricula of the five door classes the port
-has, and the CLI's wiring (flags, metadata, the refused options).
+JAX package's on the CPU: the curricula of the ten door classes, and the
+CLI's wiring (flags, metadata, the refused options).
 
 The curricula run with every training primitive recorded instead of run and
 a fake buddy, as ``tests/test_scripts.py`` runs the JAX package's: both
@@ -80,6 +80,15 @@ class FakeBuddy:
         self.log.append(("load module", source, target, label))
 
 
+def _handle_path(value):
+    """A submodule handle (``model=filter_model.filter_models[0]``) by its
+    dotted path, which both packages' handles carry; other values as they
+    are."""
+    if hasattr(value, "root") and hasattr(value, "path"):
+        return ("handle", value.path)
+    return value
+
+
 class Recorder:
     """A helper module whose every function records its name and kwargs,
     with the model's enabled modalities and frozen paths at the call."""
@@ -90,6 +99,7 @@ class Recorder:
     def __getattr__(self, name):
         def record(*args, **kwargs):
             assert not args, f"{name} called with positional arguments {args}"
+            kwargs = {k: _handle_path(v) for k, v in kwargs.items()}
             self.log.append((self.kind, name, kwargs, self.model.enabled_models,
                              sorted(self.model.frozen_paths)))
         return record
@@ -104,7 +114,7 @@ def _curriculum_log(run_curriculum, model):
 
 @pytest.fixture(scope="module")
 def jax_models():
-    """The JAX door models of the port's five types, their init traced
+    """The JAX door models of the port's types, their init traced
     (eval_shape) rather than compiled."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jwrappers.jax, "jit", lambda fn: lambda *a: jax.eval_shape(fn, *a))
@@ -112,11 +122,14 @@ def jax_models():
 
 
 def test_registry_holds_the_five_port_classes():
-    assert PORT_TYPES == ["DoorCrossmodalParticleFilter", "DoorCrossmodalParticleFilterSeq5",
-                          "DoorLSTMFilter", "DoorParticleFilter",
-                          "DoorUnimodalParticleFilter"]
-    for name in PORT_TYPES:
-        assert name in JaxDoorTask.model_types
+    """The registry holds every JAX door type (the test's name dates from
+    the PF and LSTM classes, five; the Kalman filters made them ten)."""
+    assert PORT_TYPES == sorted(JaxDoorTask.model_types)
+    assert PORT_TYPES == ["DoorCrossmodalKalmanFilter", "DoorCrossmodalParticleFilter",
+                          "DoorCrossmodalParticleFilterSeq5", "DoorKalmanFilter",
+                          "DoorLSTMFilter", "DoorMeasurementCrossmodalKalmanFilter",
+                          "DoorMeasurementUnimodalKalmanFilter", "DoorParticleFilter",
+                          "DoorUnimodalKalmanFilter", "DoorUnimodalParticleFilter"]
     choices = next(a for a in train_door._parser()._actions if a.dest == "model_type").choices
     assert sorted(choices) == PORT_TYPES
 
@@ -128,7 +141,8 @@ def test_curriculum_matches_jax(name, jax_models):
                           DoorTask.model_types[name](device="cpu"))
     assert got == want
     assert any(entry[0] == "train" for entry in got)
-    assert [e[1] for e in got if e[0] == "save"][-1] in ("phase1", "phase3", "phase4")
+    assert [e[1] for e in got if e[0] == "save"][-1] in (
+        "phase1", "phase3", "phase4", "phase4-done", "phase4-final")
 
 
 @pytest.fixture()
@@ -193,10 +207,9 @@ def test_cli_refuses_what_is_not_ported(cli_workspace, argv, raises, match):
 
 
 def test_cli_refuses_an_unregistered_model_type(cli_workspace, capsys):
-    """A class the port does not have yet (the EKF family, ROADMAP A9) is not
-    a --model-type choice."""
-    assert "DoorKalmanFilter" in JaxDoorTask.model_types
+    """A name that neither package registers is not a --model-type choice."""
+    assert "DoorNoSuchFilter" not in JaxDoorTask.model_types
     with pytest.raises(SystemExit) as exc:
-        train_door.main(["--model-type", "DoorKalmanFilter", "--experiment-name", "x"])
+        train_door.main(["--model-type", "DoorNoSuchFilter", "--experiment-name", "x"])
     assert exc.value.code == 2
-    assert "invalid choice: 'DoorKalmanFilter'" in capsys.readouterr().err
+    assert "invalid choice: 'DoorNoSuchFilter'" in capsys.readouterr().err

@@ -203,24 +203,35 @@ def test_e2e_loss_and_gradients_match_jax(initial, enabled, monkeypatch):
 
 
 # After a few Adam steps from equal weights. Adam divides each entry's
-# moment by its own gradient scale, so entries whose gradients are a few
-# orders above eps = 1e-8 (the gate's image encoder, which reaches the loss
-# only through the log-weight gate) turn fp32 differences of the gradient
-# into O(lr) differences of the update. Each parameter's update (its change
-# over the run) is held in relative L2 norm: measured at most 3.4e-2 after 3
-# steps with both modalities and 5.1e-2 with one (the last resblock bias of
-# the enabled likelihood model, whose gradient nearly cancels for the reason
-# given above), against 1.0 for an update that is wrong. A gradient that is
-# zero up to rounding (with one modality enabled: the gate and the
-# likelihood models' output biases) gives updates that are Adam-normalised
-# noise in both frameworks: those are left out.
+# moment by its own gradient scale, so an entry whose gradient is within
+# fp32 sum-order noise of zero (a near-cancelling sum, whose rounding
+# changes with torch's thread count) steps by O(lr) differently in the two
+# frameworks. test_train_e2e_epoch_matches_jax holds each parameter's update
+# (its change over the run) in relative L2 norm: measured at most 3.4e-2
+# after 3 steps with both modalities, against 1.0 for an update that is
+# wrong. The phase-3 test instead holds the raw gradients against JAX's on
+# every element (the limits above), and the updates only on the entries
+# whose port gradient stood at every step at least SIGNAL_FACTOR times that
+# element-wise gradient limit from zero: there Adam's update moves by at
+# most 1/SIGNAL_FACTOR of itself per unit of gradient difference, so the
+# check no longer hinges on the sum order. A gradient that is zero up to
+# rounding (with one modality enabled: the gate and the likelihood models'
+# output biases) gives updates that are Adam-normalised noise in both
+# frameworks: those are left out.
 UPDATE_RTOL = 1e-1
+SIGNAL_FACTOR = 10
 _NOISE_WITH_ONE_MODALITY = (_GATE,) + tuple(
     f"measurement_model.measurement_models.{i}.shared_dense_out.bias" for i in (0, 1)
 )
 
 
-def _assert_updates_close(jm, tm, start, rtol, what, skip=()):
+def _grad_rtol(name):
+    return JAX_CONV_GRAD_RTOL if name.startswith(_JAX_COARSE) else GRAD_RTOL
+
+
+def _assert_updates_close(jm, tm, start, rtol, what, skip=(), masks=None):
+    """Each parameter's update against JAX's in relative L2 norm; with
+    `masks`, over the masked-in entries only."""
     want, got = _jax_params(jm), _port_params(tm)
     for k in want:
         if k.startswith(skip):
@@ -229,8 +240,67 @@ def _assert_updates_close(jm, tm, start, rtol, what, skip=()):
         if not dj.any():  # a model disabled since a fresh optimizer: no step
             assert not dt.any(), f"{what} {k} moved"
             continue
+        if masks is not None:
+            if not masks[k].any():
+                continue
+            dj, dt = dj[masks[k]], dt[masks[k]]
         rel = float((dt - dj).norm() / dj.norm())
         assert rel <= rtol, f"{what} {k}: update differs by {rel:.3g} of its norm"
+
+
+def _record_gradients(monkeypatch, steps):
+    """Append every port optimizer step's gradients to `steps`."""
+    real = tloops.apply_gradients
+
+    def recording(optimizer, module, frozen):
+        real(optimizer, module, frozen)
+        steps.append({k: p.grad.detach().clone() for k, p in module.named_parameters()})
+
+    monkeypatch.setattr(tloops, "apply_gradients", recording)
+
+
+def _signal_masks(steps):
+    """Per parameter, the entries whose gradient stood at least
+    SIGNAL_FACTOR times the element-wise gradient limit from zero at every
+    step where the parameter had a gradient at all."""
+    masks = {}
+    for k in steps[0]:
+        mask = torch.ones_like(steps[0][k], dtype=torch.bool)
+        for grads in steps:
+            scale = float(grads[k].abs().max())
+            if scale > 0:
+                mask &= grads[k].abs() >= SIGNAL_FACTOR * _grad_rtol(k) * scale
+        masks[k] = mask
+    return masks
+
+
+def _assert_gradients_match_jax(jm, enabled):
+    """The e2e loss's gradient of every parameter at JAX's current weights,
+    port against JAX, on every element (one batch, noise from one key); one
+    modality enabled, so the gradients that are zero up to rounding are held
+    below ZERO_GRAD_ATOL instead."""
+    params = jax.tree_util.tree_map(np.asarray, jm.params)
+    ds = SubsequenceDataset(_trajectories(Trajectory, count=1, seed=5), L)
+    idx = np.arange(B)
+    batch_np = {"states": ds.states[idx], "controls": ds.controls[idx],
+                "obs": {k: v[idx] for k, v in ds.observations.items()}}
+    key = jax.random.PRNGKey(11)
+    _, jgrads = jax.jit(jax.value_and_grad(_jax_e2e_loss(jm.definition, enabled)))(
+        jm.params, jax.tree_util.tree_map(jnp.asarray, batch_np), key)
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
+    model = tdoor.DoorCrossmodalParticleFilter(device="cpu")
+    model.load_jax_params(params)
+    _, got = _port_loss_and_grads(model, batch_np, _batch_noise(key), enabled, torch.float32)
+    for k in want:
+        if got[k] is None:  # a disabled model: no gradient reaches it
+            assert not want[k].any(), k
+            continue
+        scale = float(want[k].abs().max())
+        if k.startswith(_NOISE_WITH_ONE_MODALITY) or scale <= 1e-12:  # zero to rounding
+            assert max(scale, float(got[k].abs().max())) <= ZERO_GRAD_ATOL, k
+            continue
+        torch.testing.assert_close(got[k], want[k], atol=_grad_rtol(k) * scale, rtol=0,
+                                   msg=lambda m, k=k: f"{k} vs JAX: {m}")
 
 
 def _record(monkeypatch, module, orders):
@@ -283,21 +353,28 @@ def test_phase3_enabled_switch_keeps_moving_the_disabled_model(initial, tmp_path
     """train_door.py:162-176: phase 2 trains with the image model only,
     phase 3 switches to pos+sensors under the same optimizer name. JAX keeps
     stepping the image model on its decaying Adam moments; so must the
-    port."""
+    port. Gradients are held on every element, updates on the entries whose
+    gradient stands above fp32 sum-order noise (see SIGNAL_FACTOR)."""
     jm, tm = _models(initial)
     start = _port_params(tm)
     jbuddy, tbuddy = _buddies(jm, tm, tmp_path)
     for model in (jm, tm):
         model.measurement_model.enabled_models = [True, False]
+    steps = []
+    _record_gradients(monkeypatch, steps)
     _run_both(jm, tm, jbuddy, tbuddy, monkeypatch)
-    _assert_updates_close(jm, tm, start, UPDATE_RTOL, "phase 2", skip=_NOISE_WITH_ONE_MODALITY)
+    _assert_updates_close(jm, tm, start, UPDATE_RTOL, "phase 2",
+                          skip=_NOISE_WITH_ONE_MODALITY, masks=_signal_masks(steps))
 
     image = "measurement_model.measurement_models.0."
     before = {k: v for k, v in _port_params(tm).items() if k.startswith(image)}
     for model in (jm, tm):
         model.measurement_model.enabled_models = [False, True]
     monkeypatch.undo()
+    _assert_gradients_match_jax(jm, (False, True))
+    _record_gradients(monkeypatch, steps)
     _run_both(jm, tm, jbuddy, tbuddy, monkeypatch)
-    _assert_updates_close(jm, tm, start, UPDATE_RTOL, "phase 3", skip=_NOISE_WITH_ONE_MODALITY)
+    _assert_updates_close(jm, tm, start, UPDATE_RTOL, "phase 3",
+                          skip=_NOISE_WITH_ONE_MODALITY, masks=_signal_masks(steps))
     after = _port_params(tm)
     assert all(not torch.equal(after[k], v) for k, v in before.items())
