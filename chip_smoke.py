@@ -35,7 +35,16 @@ through its kernels, and times them:
   every step (every enabled pattern, the blackout override), measurement
   init, one loop each with no host sync, one train step of the crossmodal
   KF and of the EKF against the CPU, and their times. No kernel of the
-  repo is on their path.
+  repo is on their path;
+- the serving stack (``serving_stack``): the folded encoder tail built on
+  the card against float64, bf16 features card against CPU, stacked
+  encoders against individual ones, the eval loop built with
+  ``MMF_TPU_SERVING=1`` at N=16, T=100, M=300 (every B1 call against its
+  plain version) and its fused route (one B3 launch, B3 step by step on the
+  serving features), the KF defs' ``stack_children`` on against off, and
+  ``eval_door --serving`` on the train CLI's checkpoint beside its fp32
+  eval; with the encoder pass's times (fp32, bf16, fold, stacked) at 1,600
+  and 51,200 frames and serving filter-steps/s at N=16 and N=512.
 
 B3 is also held against its plain version step by step (T=100 launches of
 one step, each from the plain run's belief), over a whole loop, and at other
@@ -3065,6 +3074,478 @@ def serving_profile(model, device) -> dict:
                             for k, (c, us) in top]}
 
 
+# The serving stack (MMF_TPU_SERVING=1: bf16 encoders and the folded
+# encoder tail; MMF_TPU_STACK_ENC=1: stacked image encoders; the KF defs'
+# stack_children). Limits: the folded weight built on the card (float64,
+# rounded to fp32 once) against a float64 construction on the CPU, FOLD_
+# WEIGHT_RTOL of its scale (a few fp32 roundings); fp32 features folded
+# against unfolded, and stacked against individual, FOLD_RTOL of scale (the
+# JAX package's limit, tests/test_fold_encoder.py: the same linear map
+# summed in another order); bf16 values BF16_ULPS bf16 ulps of their scale
+# (cuDNN and the CPU round each layer to bf16 from fp32 sums in other
+# orders, and one flipped rounding moves later layers by about an ulp).
+FOLD_WEIGHT_RTOL = 1e-6
+FOLD_RTOL = 2e-5
+BF16_ULPS = 8
+SERVING_WEIGHTS_SEED = EVAL_WEIGHTS_SEED  # bounded over T=100 at M=300
+SERVING_SAT_N = 512
+KF_STACK_T = 20  # the KF timings' and step checks' loop length
+KF_STACK_F64_RTOL = 1e-9
+KF_KINK_SHARE = 0.02
+ENCODER_FRAMES = (N * T, SAT_N * T)
+
+
+def bf16_ulp(scale: float) -> float:
+    """One bf16 ulp at `scale`: 2^-7 of the power of two at or below it."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def fold_float64(conv3, dense, spanning: bool):
+    """The folded conv3 -> [pool] -> dense map in float64 on the CPU, built
+    independently of models/encoders.py (which contracts nine shifted
+    copies in one product): the dense weight, un-pooled onto the grid,
+    through conv3's transposed convolution."""
+    import torch
+    import torch.nn.functional as F
+
+    kd = dense.weight.detach().double().cpu()
+    u, c3 = kd.shape[0], conv3.weight.shape[0]
+    if spanning:
+        kd_h = kd[:, : c3 * 16].reshape(u, c3, 1, 16).repeat_interleave(2, dim=3)
+        kd_w = kd[:, c3 * 16:].reshape(u, c3, 16, 1).repeat_interleave(2, dim=2)
+        kd_eff = (kd_h + kd_w) / 64.0
+    else:
+        kd_eff = kd.reshape(u, c3, 32, 32)
+    weight = F.conv_transpose2d(kd_eff, conv3.weight.detach().double().cpu(), padding=1)
+    bias = dense.bias.detach().double().cpu() + torch.einsum(
+        "uchw,c->u", kd_eff, conv3.bias.detach().double().cpu())
+    return weight.reshape(u, -1), bias
+
+
+def with_env(env: dict, build):
+    """build() with the environment variables `env` set, restored after."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return build()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def serving_model(door_models, device, env):
+    """DoorCrossmodalParticleFilter built under `env` with numpy weights."""
+    model = with_env(env, lambda: door_models.DoorCrossmodalParticleFilter(device=device))
+    numpy_weights(model.params, SERVING_WEIGHTS_SEED)
+    return model.eval()
+
+
+def serving_eval_cli(work) -> dict:
+    """The eval CLI on the checkpoint the train_cli phase trained: fp32, then
+    --serving (bf16 encoders and the folded tail), each run_eval_stats' 20
+    repeats from the same seeded noise. The RMSE gap is bounded by what a
+    new noise draw moves it: 3 of the repeats' standard deviations, plus 5%
+    of the mean (the trunks see features a few bf16 ulps apart, which moves
+    every resampling draw near a CDF step)."""
+    import contextlib
+    import io
+    import os
+
+    from multimodalfilter_tpu_torch.crossmodal import eval_helpers
+    from multimodalfilter_tpu_torch.scripts.door_task import eval_door
+
+    saved = os.environ.get("MMF_TPU_SERVING")
+    os.environ["MMF_TPU_SERVING"] = "0"
+    runs = {}
+    try:
+        for name, argv in (("fp32", []), ("serving", ["--serving"])):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[name] = eval_door.main(["--experiment-name", CLI_EXPERIMENT, *argv],
+                                            cache_dir=work.cache_dir)
+            runs[name]["wall_s"] = time.perf_counter() - t0
+            sub = eval_helpers.filter_model.definition.measurement_model.measurement_models[0]
+            runs[name]["encoder_dtype"] = str(sub.dtype)
+            runs[name]["fold_tail"] = sub.fold_tail
+    finally:
+        if saved is None:
+            os.environ.pop("MMF_TPU_SERVING", None)
+        else:
+            os.environ["MMF_TPU_SERVING"] = saved
+    check(runs["fp32"]["encoder_dtype"] == "None" and not runs["fp32"]["fold_tail"],
+          "the fp32 eval CLI built a serving model")
+    check(runs["serving"]["encoder_dtype"] == "torch.bfloat16" and runs["serving"]["fold_tail"],
+          "--serving did not build bf16 encoders with the folded tail")
+    gaps = {}
+    for key in ("theta_rmse_deg", "x_rmse_cm", "y_rmse_cm"):
+        f, s = runs["fp32"], runs["serving"]
+        check(math.isfinite(f[f"{key}_mean"]) and math.isfinite(s[f"{key}_mean"]),
+              f"eval CLI {key} not finite")
+        gap = abs(s[f"{key}_mean"] - f[f"{key}_mean"])
+        bound = 3 * max(f[f"{key}_std"], s[f"{key}_std"]) + 0.05 * f[f"{key}_mean"]
+        gaps[key] = {"fp32": f[f"{key}_mean"], "serving": s[f"{key}_mean"], "gap": gap,
+                     "bound": bound}
+        check(gap <= bound, f"--serving eval {key}: {gaps[key]}")
+    return {"experiment": CLI_EXPERIMENT, "runs": runs, "rmse_gap": gaps}
+
+
+def encoder_pass_ms(defn, frames: int, device) -> float:
+    """CUDA-event ms of the crossmodal PF's hoisted observation pass (both
+    models' encoders and the gate) over `frames` frames, median of 3."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(frames)
+    obs = {"image": torch.randn((frames, 32, 32), generator=g, device=device),
+           "gripper_pos": torch.randn((frames, 3), generator=g, device=device),
+           "gripper_sensors": torch.randn((frames, 7), generator=g, device=device)}
+    mm = defn.measurement_model
+    with torch.no_grad():
+        return cuda_ms(lambda: mm.encode_observations(obs), repeats=3, warmup=1)
+
+
+def kf_stack_steps(on, off, dev, ctrl, mean, cov) -> tuple:
+    """Each step of a loop from a shared belief (the loop's own, stack off),
+    stack on against off: (per step and trajectory, the largest error of the
+    estimate and the new belief relative to its scale (T, N); the steps
+    whose outputs are equal bit for bit)."""
+    import torch
+
+    errs, equal = [], 0
+    with torch.no_grad():
+        belief = off.initialize_beliefs(mean, cov, train=False)
+        for s in range(ctrl.shape[0]):
+            frame = {k: v[s:s + 1] for k, v in dev.items()}
+            b_on, e_on = on.forward_loop(belief, frame, ctrl[s:s + 1], train=False)
+            b_off, e_off = off.forward_loop(belief, frame, ctrl[s:s + 1], train=False)
+            got, want = belief_tensors(b_on) + [e_on[0].cpu()], belief_tensors(b_off) + [
+                e_off[0].cpu()]
+            equal += all(torch.equal(g, w) for g, w in zip(got, want))
+            # Each tensor's rows are trajectories: (N, ...) -> (N,).
+            errs.append(torch.stack([
+                (g - w).abs().flatten(1).amax(1) / max(1.0, float(w.abs().max()))
+                for g, w in zip(got, want)]).amax(0))
+            belief = b_off
+    return torch.stack(errs), equal
+
+
+def kf_stack_checks(door_models, device) -> dict:
+    """The crossmodal and unimodal KF with stack_children on against off,
+    each step from a shared belief (kf_stack_steps), at KF_STACK_T steps,
+    N=16. In float64 on the card every step must agree within
+    KF_STACK_F64_RTOL of scale: the same math in another order, where no
+    rounding comes near a ReLU kink. In fp32, within LOOP_ATOL of scale but
+    for at most KF_KINK_SHARE of the (step, trajectory) pairs: F, the
+    dynamics' Jacobian, is piecewise constant, so where a belief lies within
+    fp32 rounding of a ReLU kink the vmapped chain's batched products and
+    the loop's see different sides and F jumps (as between the card and the
+    CPU in the ekf phase); the pairs are counted. Then one stacked loop
+    under set_sync_debug_mode("error"), and device kernels a step
+    (profiled) and filter-steps/s, on and off."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimodalfilter_tpu_torch.crossmodal.tasks import DoorTask
+
+    t = KF_STACK_T
+    obs, controls = sequences(t, N, seed=81)
+    dev = {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
+    ctrl = torch.from_numpy(controls).to(device)
+    mean, cov = (torch.from_numpy(x).to(device) for x in initial_state(N))
+    out = {}
+    for name in ("DoorCrossmodalKalmanFilter", "DoorUnimodalKalmanFilter"):
+        model, _ = kf_pair(DoorTask.model_types[name], device)
+        on = model.definition
+        check(on.stack_children, f"{name}: stack_children is off by default")
+        off = dataclasses.replace(on, stack_children=False)
+        rec = {"steps": t, "N": N}
+        model.params.double()
+        try:
+            errs, equal = kf_stack_steps(on, off, {k: v.double() for k, v in dev.items()},
+                                         ctrl.double(), mean.double(), cov.double())
+        finally:
+            model.params.float()
+        rec["float64"] = {"max_err_of_scale": float(errs.max()), "steps_equal_bitwise": equal}
+        check(float(errs.max()) <= KF_STACK_F64_RTOL,
+              f"{name} stack_children on vs off in float64: {rec['float64']}")
+        errs, equal = kf_stack_steps(on, off, dev, ctrl, mean, cov)
+        beyond = int((errs > LOOP_ATOL).sum())
+        rec["fp32"] = {"max_err_of_scale": float(errs.max()), "steps_equal_bitwise": equal,
+                       "pairs": errs.numel(), "pairs_beyond_loop_atol": beyond,
+                       "median_err_of_scale": float(errs.median())}
+        check(beyond <= KF_KINK_SHARE * errs.numel(),
+              f"{name} stack_children on vs off in fp32: {rec['fp32']}")
+
+        model.initialize_beliefs(mean=mean, covariance=cov)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            est = model.forward_loop(observations=dev, controls=ctrl)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(bool(torch.isfinite(est).all()), f"{name} stacked loop under sync debug mode")
+        rec["no_host_sync"] = True
+
+        for label, defn in (("stacked", on), ("loop", off), ("loop_2", off), ("stacked_2", on)):
+            model.definition = defn
+            rec[label] = kf_loop_rate(model, dev, ctrl, mean, cov, repeats=3)
+            if label in ("stacked", "loop"):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    model.initialize_beliefs(mean=mean, covariance=cov)
+                    model.forward_loop(observations=dev, controls=ctrl)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                kernels = device_kernels(prof)
+                _, busy_us = kernel_totals(kernels)
+                rec[label]["device_kernels_per_step"] = len(kernels) / t if kernels else (
+                    "not measured")
+                rec[label]["device_busy_share"] = busy_us / wall_us if kernels else (
+                    "not measured")
+                rec[label]["profiled_host_ms_per_step"] = wall_us / 1e3 / t
+        model.definition = on
+        out[name] = rec
+    return out
+
+
+def phase_serving_stack(door_models, fused_step, pf_kernels, pf_module, device,
+                        eval_cli) -> dict:
+    """The serving stack on the card through its entry points, at full
+    width: (1) the fold: the folded weight under the default TF32 flags
+    against float64 on the CPU, both variants; fp32 features folded against
+    unfolded; (2) bf16 features on the card against the CPU's; (3) stacked
+    encoders against individual ones; (4) the serving per-step loop
+    (MMF_TPU_SERVING=1) at N=16, T=100, M=300, every B1 call against its
+    plain version; (5) the fused serving route (with MMF_TPU_FUSED_STEP=1),
+    one B3 launch, B3 step by step on the serving features; (6) the KF
+    defs' stack_children on against off; (7) the eval CLI's --serving
+    (`eval_cli`, run on the train CLI's checkpoint); and the times: the
+    encoder pass at 1,600 and 51,200 frames, serving filter-steps/s at N=16
+    and N=512, fp32 against serving, per-step and fused."""
+    import dataclasses
+
+    import torch
+
+    from multimodalfilter_tpu_torch.models import ImageEncoder
+    from multimodalfilter_tpu_torch.models.encoders import fold_tail_weights
+    from multimodalfilter_tpu_torch.models.stacked import stacked_image_features
+    from multimodalfilter_tpu_torch.utils import (
+        with_compute_dtype,
+        with_fold_tail,
+        with_stacked_encoders,
+    )
+
+    out = {"phase": "serving_stack", "model": "DoorCrossmodalParticleFilter", "units": 64,
+           "weights_seed": SERVING_WEIGHTS_SEED,
+           "limits": {"fold_weight_rtol": FOLD_WEIGHT_RTOL, "fold_rtol": FOLD_RTOL,
+                      "bf16_ulps_of_scale": BF16_ULPS, "loop_atol": LOOP_ATOL,
+                      "est_atol_kernel": EST_ATOL_KERNEL}}
+
+    section_s, t_section = {}, [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        section_s[name] = now - t_section[0]
+        t_section[0] = now
+
+    # (1) The fold, built on the card under the default TF32 flags.
+    images = torch.from_numpy(sequences(T, N, seed=71)[0]["image"].reshape(T * N, 32, 32))
+    fold = {}
+    for spanning in (False, True):
+        enc = ImageEncoder(64, spanning, device=device)
+        numpy_weights(enc, SERVING_WEIGHTS_SEED)
+        saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+        try:
+            with torch.no_grad():
+                weight, bias = fold_tail_weights(enc.conv3, enc.dense, spanning)
+                torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        want_w, want_b = fold_float64(enc.conv3, enc.dense, spanning)
+        scale = max(float(want_w.abs().max()), float(want_b.abs().max()))
+        err = max(float((weight.cpu().double() - want_w).abs().max()),
+                  float((bias.cpu().double() - want_b).abs().max()))
+        check(weight.dtype == torch.float32 and err <= FOLD_WEIGHT_RTOL * scale,
+              f"folded weight (spanning={spanning}) vs float64: {err} at scale {scale}")
+        with torch.no_grad():
+            x = images.to(device)
+            folded, plain = enc(x, fold_tail=True), enc(x)
+        feat_err = float((folded - plain).abs().max())
+        feat_scale = float(plain.abs().max())
+        check(feat_err <= FOLD_RTOL * max(1.0, feat_scale),
+              f"folded vs unfolded fp32 features (spanning={spanning}): {feat_err}")
+        fold["spanning" if spanning else "flatten"] = {
+            "weight_err_vs_float64": err, "weight_scale": scale,
+            "tf32_flags": {"matmul": False, "cudnn": True},
+            "features_folded_vs_unfolded": feat_err, "features_scale": feat_scale,
+            "frames": T * N}
+    out["fold"] = fold
+    section("fold")
+
+    # (2) bf16 features, card against CPU, on the same frames.
+    enc = ImageEncoder(64, device=device)
+    numpy_weights(enc, SERVING_WEIGHTS_SEED)
+    cpu_enc = ImageEncoder(64)
+    cpu_enc.load_state_dict(enc.state_dict())
+    few = images[:64]
+    bf16 = {}
+    for fold_tail in (False, True):
+        with torch.no_grad():
+            got = enc(few.to(device), dtype=torch.bfloat16, fold_tail=fold_tail).float().cpu()
+            want = cpu_enc(few, dtype=torch.bfloat16, fold_tail=fold_tail).float()
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        bf16["fold" if fold_tail else "unfolded"] = {"err": err, "scale": scale,
+                                                     "ulps_of_scale": err / bf16_ulp(scale)}
+        check(err <= BF16_ULPS * bf16_ulp(scale), f"bf16 features card vs CPU: {bf16}")
+    out["bf16_card_vs_cpu"] = {"frames": few.shape[0], **bf16}
+    section("bf16_card_vs_cpu")
+
+    # (3) Stacked against individual encoders: the crossmodal PF's image
+    # measurement model's and its gate's.
+    fp32_model = serving_model(door_models, device, {"MMF_TPU_SERVING": "0"})
+    mm = fp32_model.definition.measurement_model
+    encs = [mm.measurement_models[0].net.obs_encoders.image_encoder,
+            mm.crossmodal_weight_model.net.obs_encoders.image_encoder]
+    stack = {}
+    with torch.no_grad():
+        x = images.to(device)
+        for label, dtype, fold_tail in (("fp32", None, False), ("bf16_fold", torch.bfloat16,
+                                                                   True)):
+            got = stacked_image_features(encs, x, dtype=dtype, fold_tail=fold_tail)
+            alone = [e(x, dtype=dtype, fold_tail=fold_tail) for e in encs]
+            err = max(float((g.float() - a.float()).abs().max()) for g, a in zip(got, alone))
+            scale = max(float(a.float().abs().max()) for a in alone)
+            limit = (FOLD_RTOL * max(1.0, scale) if dtype is None
+                     else BF16_ULPS * bf16_ulp(scale))
+            check(err <= limit, f"stacked vs individual encoders ({label}): {err}")
+            stack[label] = {"err": err, "scale": scale, "limit": limit}
+    out["stacked_vs_individual"] = {"K": 2, "frames": T * N, **stack}
+    section("stacked_vs_individual")
+
+    # (4) The serving per-step loop through the facade.
+    model = serving_model(door_models, device, {"MMF_TPU_SERVING": "1"})
+    sub = model.definition.measurement_model.measurement_models[0]
+    check(sub.dtype == torch.bfloat16 and sub.fold_tail,
+          "MMF_TPU_SERVING=1 did not set bf16 and the fold")
+    step_defn = dataclasses.replace(model.definition, num_particles_eval=M)
+    model.definition = step_defn
+    obs, controls = sequences(T, N, seed=70)
+    mean, cov = initial_state(N)
+    records = []
+    real_tail = pf_module.pf_update_and_resample
+
+    def recording_tail(log_weights, log_liks, particles, uniforms, **kwargs):
+        result = real_tail(log_weights, log_liks, particles, uniforms, **kwargs)
+        records.append((log_weights, log_liks, uniforms, particles, kwargs, result))
+        return result
+
+    b1, b3 = pf_kernels.launch_b1, fused_step.fused_forward_kernel
+    pf_module.pf_update_and_resample = recording_tail
+    try:
+        model.initialize_beliefs(mean=mean, covariance=cov)
+        b1.launches = b3.launches = 0
+        est = model.forward_loop(observations=obs, controls=controls)
+        torch.cuda.synchronize()
+        step_launches = {"b1": b1.launches, "b3": b3.launches}
+    finally:
+        pf_module.pf_update_and_resample = real_tail
+    check(step_launches == {"b1": T, "b3": 0}, f"serving per-step launches {step_launches}")
+    check(tuple(est.shape) == (T, N, 3) and bool(torch.isfinite(est).all()),
+          "serving per-step estimates")
+    out["per_step"] = {"N": N, "T": T, "M": M, "launches": step_launches,
+                       "b1_along_path": b1_along_path(pf_kernels, records),
+                       "est_scale": float(est.abs().max())}
+    records.clear()
+    section("per_step")
+
+    # (5) The fused serving route, and B3 step by step on serving features.
+    fused_model = serving_model(door_models, device, {"MMF_TPU_SERVING": "1",
+                                                      "MMF_TPU_FUSED_STEP": "1"})
+    check(fused_model.definition.fused_step, "MMF_TPU_FUSED_STEP=1 did not set fused_step")
+    fused_defn = dataclasses.replace(fused_model.definition, num_particles_eval=M)
+    fused_model.definition = fused_defn
+    fused_model.initialize_beliefs(mean=mean, covariance=cov)
+    b1.launches = b3.launches = 0
+    est = fused_model.forward_loop(observations=obs, controls=controls)
+    torch.cuda.synchronize()
+    fused_launches = {"b1": b1.launches, "b3": b3.launches}
+    check(fused_step.packing_report() is None,
+          f"the fused serving route fell back: {fused_step.packing_report()}")
+    check(fused_launches == {"b1": 0, "b3": 1}, f"fused serving launches {fused_launches}")
+    check(bool(torch.isfinite(est).all()), "fused serving estimates")
+    _, _, belief, _, uniforms, ops = door_sequences(fused_defn, T, N, M, device, seed=72)
+    out["fused"] = {"N": N, "T": T, "M": M, "launches": fused_launches,
+                    "b3_per_step": b3_per_step(fused_step, pf_kernels, ops, belief, uniforms)}
+    section("fused")
+
+    # (6) The KF defs' stack_children.
+    out["kf_stack_children"] = kf_stack_checks(door_models, device)
+    section("kf_stack_children")
+    # (7) The eval CLI's --serving on the trained checkpoint.
+    out["eval_cli"] = eval_cli
+
+    # Times: the hoisted encoder pass.
+    defn = fp32_model.definition
+    configs = {"fp32": defn, "bf16": with_compute_dtype(defn, torch.bfloat16),
+               "fold": with_fold_tail(defn), "bf16_fold": with_fold_tail(
+                   with_compute_dtype(defn, torch.bfloat16)),
+               "stacked": with_stacked_encoders(defn),
+               "stacked_bf16_fold": with_stacked_encoders(with_fold_tail(
+                   with_compute_dtype(defn, torch.bfloat16)))}
+    passes = {}
+    for frames in ENCODER_FRAMES:
+        for label, cdefn in configs.items():
+            if label == "stacked" and frames > N * T:
+                continue  # fp32 stacked at 51,200 frames: ~65 GB of activations
+            passes[f"{label}_{frames}"] = encoder_pass_ms(cdefn, frames, device)
+            torch.cuda.empty_cache()
+    out["encoder_pass_ms"] = passes
+    section("encoder_pass_ms")
+
+    # Times: serving filter-steps/s, fp32 against MMF_TPU_SERVING=1, in turns
+    # (fp32, serving, serving, fp32), each turn the median of 2 after one
+    # warm-up.
+    rates = {}
+    routes = {"per_step": (dataclasses.replace(defn, num_particles_eval=M), step_defn),
+              "fused": (dataclasses.replace(defn, num_particles_eval=M, fused_step=True),
+                        fused_defn)}
+    for n in (N, SERVING_SAT_N):
+        o, c = sequences(T, n, seed=73)
+        o = {k: torch.from_numpy(v).to(device) for k, v in o.items()}
+        c = torch.from_numpy(c).to(device)
+        mn, cv = initial_state(n)
+        for route, (plain_defn, serving_defn) in routes.items():
+            turns = {"fp32": [], "serving": []}
+            for label, rdefn in (("fp32", plain_defn), ("serving", serving_defn),
+                                 ("serving", serving_defn), ("fp32", plain_defn)):
+                model.definition = rdefn
+
+                def run():
+                    model.initialize_beliefs(mean=mn, covariance=cv)
+                    model.forward_loop(observations=o, controls=c)
+
+                turns[label].append(cuda_ms(run, repeats=2, warmup=1))
+            for label, ms in turns.items():
+                rates[f"N{n}_{label}_{route}"] = {
+                    "ms_per_loop_turns": ms,
+                    "filter_steps_per_s": T * n / (statistics.median(ms) / 1e3)}
+        torch.cuda.empty_cache()
+    out["serving_rates"] = rates
+    section("serving_rates")
+    out["section_s"] = section_s
+    out["tf32"] = False
+    emit(out)
+    return {"b1": step_launches["b1"], "b3": fused_launches["b3"]}
+
+
 def phase_tail_paths(door_models, pf_kernels, device) -> dict:
     """The per-step eval loop through B4 (alpha=0.9) and through B5 (M=2048
     and M=16384): each launches its kernel once a step, B1 never."""
@@ -3323,8 +3804,11 @@ def main(argv=None) -> int:
         train_cli = phase_train_cli(fused_step, pf_kernels, pf_estimate, pf_module, device,
                                     work)
         phase_s["train_cli"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        serving_cli = serving_eval_cli(work)
+        phase_s["serving_eval_cli"] = time.perf_counter() - t1
         phase_resume(pf_kernels, pf_estimate, work, train_cli)
-        phase_s["resume"] = time.perf_counter() - t0 - phase_s["train_cli"]
+        phase_s["resume"] = time.perf_counter() - t0 - sum(phase_s.values())
         phase_lstm(door_models, fused_step, pf_kernels, pf_estimate, device, work, train_cli)
         phase_s["lstm"] = time.perf_counter() - t0 - sum(phase_s.values())
     t0 = time.perf_counter()
@@ -3334,6 +3818,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_ekf(door_models, device)
     phase_s["ekf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving_stack = phase_serving_stack(door_models, fused_step, pf_kernels, pf_module,
+                                        device, serving_cli)
+    phase_s["serving_stack"] = time.perf_counter() - t0
     emit({"phase": "train_cli_phases_wall_s", **phase_s})
     times = phase_times(main_path["model"], pf_kernels, device)
     if old is not None:
@@ -3357,6 +3845,7 @@ def main(argv=None) -> int:
         "launches": main_path["launches"],
         "eval_pipeline_launches": eval_pipeline["b1_launches"],
         "train_cli_launches": train_cli["launches"]["b1"],
+        "serving_stack_launches": serving_stack["b1"],
         "max_abs_err": b1_check["max_abs_err_est"],
         "max_abs_err_est": b1_check["max_abs_err_est"],
         "index_mismatch_non_tie": b1_check["index_mismatch_non_tie"],
@@ -3387,6 +3876,7 @@ def main(argv=None) -> int:
         "replaces": "multimodalfilter_tpu/ops/pallas_fused_step.py:158",
         "launches": serving["launches"]["b3"],
         "eval_pipeline_launches": eval_pipeline["b3_launches"],
+        "serving_stack_launches": serving_stack["b3"],
         "max_abs_err": b3_check["max_abs_err_est"],
         "shape": [T, N, M, 3, 2],
         **{k: new_times["b3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

@@ -4,6 +4,12 @@ As in the JAX package, a *def* is a frozen dataclass of networks plus static
 config. Here the networks are ``nn.Module``s that own their parameters, so
 the methods take no ``params`` argument; ``module()`` returns the module
 tree whose state-dict keys are the def's flax param paths.
+
+The serving options that the JAX package keeps on its flax nets, the
+observation encoders' compute ``dtype`` and ``fold_tail``, are fields of the
+defs that hold an observation net, passed to the net on each call
+(``encoder_options``): defs rebuilt by ``utils/precision.py`` share the nets
+and their parameters and still compute as each was built.
 """
 
 from __future__ import annotations
@@ -11,10 +17,22 @@ from __future__ import annotations
 import abc
 import dataclasses
 import inspect
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
+
+
+def encoder_options(defn) -> dict:
+    """The keyword arguments that carry a def's serving options (``dtype``,
+    ``fold_tail``) to its net: none where both are off, so a net that has
+    no observation encoders takes the call as before."""
+    options = {}
+    if getattr(defn, "dtype", None) is not None:
+        options["dtype"] = defn.dtype
+    if getattr(defn, "fold_tail", False):
+        options["fold_tail"] = True
+    return options
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -72,6 +90,8 @@ class MeasurementDef:
     (states (N, M, D), observations) -> log-likelihoods (N, M)."""
 
     net: nn.Module
+    dtype: Any = None  # the observation encoders' compute dtype
+    fold_tail: bool = False  # the image encoder's folded tail
 
     def module(self) -> nn.Module:
         return self.net
@@ -79,7 +99,7 @@ class MeasurementDef:
     def log_likelihoods(self, states, observations,
                         enabled: Optional[Tuple[bool, ...]] = None):
         del enabled  # single-modality-set model; fusion is in fusion.py
-        return self.net(states, observations)
+        return self.net(states, observations, **encoder_options(self))
 
     def encode_observations(self, observations,
                             enabled: Optional[Tuple[bool, ...]] = None):
@@ -87,7 +107,7 @@ class MeasurementDef:
         T*N frames. Nets without the split pass observations through."""
         del enabled
         if hasattr(self.net, "encode_obs"):
-            return self.net.encode_obs(observations)
+            return self.net.encode_obs(observations, **encoder_options(self))
         return observations
 
     def log_likelihoods_from_features(self, states, features,
@@ -104,13 +124,15 @@ class VirtualSensorDef:
     scale_tril (N, D, D))."""
 
     net: nn.Module
+    dtype: Any = None  # the observation encoders' compute dtype
+    fold_tail: bool = False  # the image encoder's folded tail
 
     def module(self) -> nn.Module:
         return self.net
 
     def apply(self, observations, enabled: Optional[Tuple[bool, ...]] = None):
         del enabled  # one modality set; fusion is in fusion.py
-        return self.net(observations)
+        return self.net(observations, **encoder_options(self))
 
 
 class FilterDef(abc.ABC):

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.func import jacrev, vmap
+from torch.func import functional_call, jacrev, vmap
 
 from ..types import GaussianBelief
 from .base import DynamicsDef, FilterDef, VirtualSensorDef
@@ -100,14 +100,28 @@ class VirtualSensorEKFDef(FilterDef):
         z, r_tril = self.virtual_sensor_model.apply(observations)
         return GaussianBelief(z, r_tril @ r_tril.mT)
 
-    def predict(self, belief: GaussianBelief, controls, *, ctrl_feat=None):
+    def _dynamics_step(self, hoisted: bool, dynamics_params=None):
+        """(states, controls or hoisted control features) -> (new states,
+        scale_tril): the dynamics net, or the net called with
+        `dynamics_params` in place of its own (a child of a stacked chain,
+        ``fusion.py``)."""
+        dyn = self.dynamics_model
+        if dynamics_params is None:
+            return dyn.apply_with_control_features if hoisted else dyn.apply
+        if hoisted:
+            return lambda s, c: functional_call(dyn.net, dynamics_params, (s,),
+                                                {"control_features": c})
+        return lambda s, c: functional_call(dyn.net, dynamics_params, (s, c))
+
+    def predict(self, belief: GaussianBelief, controls, *, ctrl_feat=None,
+                dynamics_params=None):
         """EKF predict step. With `ctrl_feat` (hoisted control features,
         ``precompute_control_features``) the dynamics runs its
-        carry-dependent remainder only and `controls` is ignored."""
+        carry-dependent remainder only and `controls` is ignored. With
+        `dynamics_params` the dynamics net runs on those parameters."""
         mean, cov = belief
-        dyn = self.dynamics_model
-        step, ctrl_in = ((dyn.apply, controls) if ctrl_feat is None
-                         else (dyn.apply_with_control_features, ctrl_feat))
+        step = self._dynamics_step(ctrl_feat is not None, dynamics_params)
+        ctrl_in = controls if ctrl_feat is None else ctrl_feat
 
         def mean_fn(s, c):
             new, tril = step(s[None], c[None])
@@ -118,10 +132,11 @@ class VirtualSensorEKFDef(FilterDef):
         return pred_mean, pred_cov
 
     def update_from_virtual(self, belief: GaussianBelief, z, r_tril, controls, *,
-                            ctrl_feat=None):
+                            ctrl_feat=None, dynamics_params=None):
         """Predict, then update from a precomputed virtual measurement.
         Returns (new belief, its mean)."""
-        pred_mean, pred_cov = self.predict(belief, controls, ctrl_feat=ctrl_feat)
+        pred_mean, pred_cov = self.predict(belief, controls, ctrl_feat=ctrl_feat,
+                                           dynamics_params=dynamics_params)
         mean, cov = _kalman_update(pred_mean, pred_cov, z, r_tril)
         return GaussianBelief(mean, cov), mean
 

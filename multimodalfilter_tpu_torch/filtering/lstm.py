@@ -24,6 +24,9 @@ from .pf import _tree_map
 class LSTMFilterDef(FilterDef):
     net: nn.Module  # LSTMFilterNet
     state_dim: int
+    # The image encoder's folded tail (with_fold_tail); the LSTM has no
+    # compute dtype, as in the JAX package.
+    fold_tail: bool = False
 
     def module(self) -> nn.Module:
         return self.net
@@ -43,7 +46,7 @@ class LSTMFilterDef(FilterDef):
              generator: Optional[torch.Generator] = None):
         del enabled, eps, uniforms, generator
         with torch.set_grad_enabled(train):
-            return self.net(observations, controls, belief)
+            return self.net(observations, controls, belief, fold_tail=self.fold_tail)
 
     def forward_loop(self, belief, observations_seq, controls_seq, *, train: bool,
                      enabled: Optional[Tuple[bool, ...]] = None, eps_seq=None,
@@ -56,7 +59,8 @@ class LSTMFilterDef(FilterDef):
             flat_obs = _tree_map(lambda v: v.reshape((t * n,) + v.shape[2:]),
                                  observations_seq)
             features = self.net.encode(
-                flat_obs, controls_seq.reshape((t * n,) + controls_seq.shape[2:])
+                flat_obs, controls_seq.reshape((t * n,) + controls_seq.shape[2:]),
+                fold_tail=self.fold_tail,
             ).reshape(t, n, -1)
             packed = self.net.packed_cells()
             estimates = []

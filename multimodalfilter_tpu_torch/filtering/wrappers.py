@@ -24,7 +24,12 @@ import torch
 
 from .._device import Device, resolve_device
 from ..types import GaussianBelief
-from ..utils.precision import with_fused_step
+from ..utils.precision import (
+    with_compute_dtype,
+    with_fold_tail,
+    with_fused_step,
+    with_stacked_encoders,
+)
 from ..weights import init_params, load_jax_params
 from .base import measurement_initialize
 
@@ -116,19 +121,29 @@ def _child_accessor(root, path: str, definition, name: str):
     )
 
 
-# Knobs the port does not serve yet: (env name, on under MMF_TPU_SERVING=1,
-# what it promises, the ROADMAP item that ports it).
-_UNPORTED_KNOBS = (
-    ("MMF_TPU_BF16", True, "bf16 encoder compute", "A8"),
-    ("MMF_TPU_FOLD_ENC", True, "the folded image-encoder tail", "A8"),
-    ("MMF_TPU_STACK_ENC", False, "channel-stacked image encoders", "A12"),
-)
+# MMF_TPU_RBG values that leave JAX's default PRNG (utils/rng.py of the JAX
+# package): the only ones the port, which draws from torch.Generator, accepts.
+_RBG_OFF = ("", "0", "off", "false")
+
+
+def _knob(name: str, default_on: bool) -> bool:
+    return os.environ.get(name, "1" if default_on else "0") == "1"
 
 
 def apply_serving_knobs(definition):
-    """The JAX facade's serving knobs, read from the environment
-    (wrappers.py:160-239 of the JAX package):
+    """The JAX facade's serving knobs, read from the environment, with its
+    defaults and overrides (wrappers.py:160-239 of the JAX package):
 
+    - ``MMF_TPU_SERVING=1`` is the serving stack in one switch: it turns on
+      ``MMF_TPU_BF16`` and ``MMF_TPU_FOLD_ENC`` (and ``MMF_TPU_PALLAS``),
+      each of which an explicit ``=0`` turns off again.
+    - ``MMF_TPU_BF16=1`` applies ``with_compute_dtype(torch.bfloat16)``: the
+      observation encoders compute in bf16, their features return in fp32.
+    - ``MMF_TPU_FOLD_ENC=1`` applies ``with_fold_tail``: each image encoder's
+      conv3 -> dense tail runs as one product.
+    - ``MMF_TPU_STACK_ENC=1`` applies ``with_stacked_encoders``: the image
+      encoders that read the same frame run as one stacked pass. Off by
+      default and not part of the serving switch, as in the JAX package.
     - ``MMF_TPU_FUSED_STEP=1`` applies ``with_fused_step``: the eval
       forward_loop of a qualifying particle filter runs as one kernel, B3.
     - ``MMF_TPU_PALLAS`` is accepted and has no effect: the port always runs
@@ -136,25 +151,28 @@ def apply_serving_knobs(definition):
     - ``MMF_TPU_SCAN_UNROLL`` is accepted (an integer, as in JAX) and has no
       effect: the port's forward_loop is a Python loop, with no scan to
       unroll.
-    - ``MMF_TPU_BF16``, ``MMF_TPU_FOLD_ENC``, ``MMF_TPU_STACK_ENC`` and
-      ``MMF_TPU_SERVING`` (which turns on BF16 and FOLD_ENC unless they are
-      set to 0) raise ``NotImplementedError`` naming the ROADMAP item, rather
-      than serve in a precision or layout the knob did not promise.
+    - ``MMF_TPU_RBG`` is accepted when it leaves JAX's default PRNG (0, off)
+      and refused otherwise: the port draws from ``torch.Generator``.
+
+    Training strips the dtype, the fold and the stack again
+    (``train/loops.py``), so a model built under the switch trains as a
+    plain one and evaluates with the serving stack.
     """
+    rbg = os.environ.get("MMF_TPU_RBG", "0")
+    if rbg.strip().lower() not in _RBG_OFF:
+        raise NotImplementedError(
+            f"MMF_TPU_RBG={rbg!r} picks one of JAX's PRNG implementations; the "
+            "PyTorch port draws from torch.Generator: unset it or set it to 0"
+        )
     serving = os.environ.get("MMF_TPU_SERVING", "0") == "1"
-
-    def knob(name: str, default_on: bool) -> bool:
-        return os.environ.get(name, "1" if default_on else "0") == "1"
-
     int(os.environ.get("MMF_TPU_SCAN_UNROLL", "1"))
-    for name, under_serving, what, item in _UNPORTED_KNOBS:
-        if knob(name, serving and under_serving):
-            via = " (through MMF_TPU_SERVING=1)" if name not in os.environ else ""
-            raise NotImplementedError(
-                f"{name}=1{via} asks for {what}, which the PyTorch port does not "
-                f"have yet (ROADMAP {item}); unset it to serve in fp32"
-            )
-    if knob("MMF_TPU_FUSED_STEP", False):
+    if _knob("MMF_TPU_BF16", serving):
+        definition = with_compute_dtype(definition, torch.bfloat16)
+    if _knob("MMF_TPU_FOLD_ENC", serving):
+        definition = with_fold_tail(definition, True)
+    if _knob("MMF_TPU_STACK_ENC", False):
+        definition = with_stacked_encoders(definition, True)
+    if _knob("MMF_TPU_FUSED_STEP", False):
         definition = with_fused_step(definition, True)
     return definition
 

@@ -8,6 +8,15 @@ Attribute names are the flax scope names, so the state-dict keys of each net
 are its flax param paths. Flax infers input widths from data; here they are
 arguments (door defaults: state 3, control 7, gripper_pos 3,
 gripper_sensors 7).
+
+The observation encoders take the serving options of their def as keyword
+arguments of each call, where the flax nets hold them as module fields: a
+compute ``dtype`` (the encoders compute in it and their concatenated
+features return in fp32, so every trunk after them stays fp32) and
+``fold_tail`` (the image encoder's folded tail); see ``encoders.py``. An
+observations dict may carry ``"_image_features"``: the image encoder's
+output, precomputed by the stacked pass (``stacked.py``), which then stands
+in for the net's own image encoder.
 """
 
 from __future__ import annotations
@@ -35,11 +44,13 @@ class _ObservationEncoders(nn.Module):
     Only the selected modalities get an encoder."""
 
     def __init__(self, units: int, modalities: Sequence[str] = MODALITY_ORDER,
-                 *, pos_dim: int = 3, sensors_dim: int = 7, device=None):
+                 spanning_avg_pool: bool = False, *, pos_dim: int = 3,
+                 sensors_dim: int = 7, device=None):
         super().__init__()
         self.modalities = _check_modalities(modalities)
         if "image" in self.modalities:
-            self.observation_image_layers = ImageEncoder(units, device=device)
+            self.observation_image_layers = ImageEncoder(units, spanning_avg_pool,
+                                                         device=device)
         if "pos" in self.modalities:
             self.observation_pos_layers = MLPEncoder(pos_dim, units, device=device)
         if "sensors" in self.modalities:
@@ -48,17 +59,25 @@ class _ObservationEncoders(nn.Module):
             )
         self.out_features = units * len(self.modalities)
 
-    def forward(self, observations) -> torch.Tensor:
+    @property
+    def image_encoder(self) -> Optional[ImageEncoder]:
+        return getattr(self, "observation_image_layers", None)
+
+    def forward(self, observations, *, dtype=None, fold_tail: bool = False) -> torch.Tensor:
         feats = []
         if "image" in self.modalities:
-            feats.append(self.observation_image_layers(observations["image"]))
+            pre = observations.get("_image_features")
+            feats.append(pre if pre is not None else self.observation_image_layers(
+                observations["image"], dtype=dtype, fold_tail=fold_tail))
         if "pos" in self.modalities:
-            feats.append(self.observation_pos_layers(observations["gripper_pos"]))
+            feats.append(self.observation_pos_layers(observations["gripper_pos"],
+                                                     dtype=dtype))
         if "sensors" in self.modalities:
-            feats.append(
-                self.observation_sensors_layers(observations["gripper_sensors"])
-            )
-        return torch.cat(feats, dim=-1)
+            feats.append(self.observation_sensors_layers(observations["gripper_sensors"],
+                                                         dtype=dtype))
+        out = torch.cat(feats, dim=-1)
+        # The features re-enter fp32 math downstream.
+        return out if dtype is None else out.float()
 
 
 class DynamicsNet(nn.Module):
@@ -72,6 +91,8 @@ class DynamicsNet(nn.Module):
                  units: int = 64, control_dim: int = 7, *, device=None):
         super().__init__()
         self.state_dim = state_dim
+        self.units = units
+        self.q_scale_tril_diag = tuple(float(v) for v in q_scale_tril_diag)
         self.control_layers = MLPEncoder(control_dim, units, device=device)
         self.state_layers = MLPEncoder(state_dim, units, device=device)
         self.shared_dense_in = nn.Linear(2 * units, units, device=device)
@@ -111,10 +132,13 @@ class DynamicsNet(nn.Module):
         )
         return states_new, scale_tril
 
-    def forward(self, states, controls):
+    def forward(self, states, controls=None, *, control_features=None):
         """states (B, D), controls (B, C) -> (new_states (B, D),
-        scale_tril (B, D, D))."""
-        return self.from_control_features(states, self.encode_controls(controls))
+        scale_tril (B, D, D)); or from hoisted `control_features` (B, U)
+        in place of the controls."""
+        if control_features is None:
+            control_features = self.encode_controls(controls)
+        return self.from_control_features(states, control_features)
 
 
 class LogLikelihoodNet(nn.Module):
@@ -125,10 +149,11 @@ class LogLikelihoodNet(nn.Module):
     ``from_features`` (the per-particle trunk)."""
 
     def __init__(self, state_dim: int, modalities: Sequence[str] = MODALITY_ORDER,
-                 units: int = 64, *, device=None):
+                 units: int = 64, spanning_avg_pool: bool = False, *, device=None):
         super().__init__()
         self.state_dim = state_dim
-        self.obs_encoders = _ObservationEncoders(units, modalities, device=device)
+        self.obs_encoders = _ObservationEncoders(units, modalities, spanning_avg_pool,
+                                                 device=device)
         self.state_layers = MLPEncoder(state_dim, units, device=device)
         self.shared_dense_in = nn.Linear(
             self.obs_encoders.out_features + units, units, device=device
@@ -137,9 +162,9 @@ class LogLikelihoodNet(nn.Module):
         self.shared_resblock1 = LinearResblock(units, device=device)
         self.shared_dense_out = nn.Linear(units, 1, device=device)
 
-    def encode_obs(self, observations) -> torch.Tensor:
-        """(N, ...) observations -> (N, units * num_modalities) features."""
-        return self.obs_encoders(observations)
+    def encode_obs(self, observations, *, dtype=None, fold_tail: bool = False):
+        """(N, ...) observations -> (N, units * num_modalities) fp32 features."""
+        return self.obs_encoders(observations, dtype=dtype, fold_tail=fold_tail)
 
     def from_features(self, states, obs_features) -> torch.Tensor:
         """states (N, M, D) + obs features (N, F) -> log-likelihoods (N, M)."""
@@ -155,8 +180,9 @@ class LogLikelihoodNet(nn.Module):
         x = self.shared_resblock1(x)
         return self.shared_dense_out(x).squeeze(-1)
 
-    def forward(self, states, observations):
-        return self.from_features(states, self.encode_obs(observations))
+    def forward(self, states, observations, *, dtype=None, fold_tail: bool = False):
+        return self.from_features(
+            states, self.encode_obs(observations, dtype=dtype, fold_tail=fold_tail))
 
 
 class PFWeightNet(nn.Module):
@@ -175,8 +201,9 @@ class PFWeightNet(nn.Module):
             self.add_module(f"fusion_resblock{i}", LinearResblock(units, device=device))
         self.fusion_dense_out = nn.Linear(units, modality_count, device=device)
 
-    def forward(self, observations):
-        x = torch.relu(self.fusion_dense_in(self.obs_encoders(observations)))
+    def forward(self, observations, *, dtype=None, fold_tail: bool = False):
+        x = self.obs_encoders(observations, dtype=dtype, fold_tail=fold_tail)
+        x = torch.relu(self.fusion_dense_in(x))
         for i in range(self.num_fusion_resblocks):
             x = getattr(self, f"fusion_resblock{i}")(x)
         return self.fusion_dense_out(x)
@@ -196,15 +223,11 @@ class VirtualSensorNet(nn.Module):
                  spanning_avg_pool: bool = False,
                  noise_R_tril_diag: Optional[Sequence[float]] = None, *, device=None):
         super().__init__()
-        if spanning_avg_pool:
-            raise NotImplementedError(
-                "the spanning-average-pool image encoder is the push task's, which "
-                "the PyTorch port does not have yet (ROADMAP A11)"
-            )
         self.state_dim = state_dim
         self.units = units
         self.add_R_noise = add_R_noise
-        self.obs_encoders = _ObservationEncoders(units, modalities, device=device)
+        self.obs_encoders = _ObservationEncoders(units, modalities, spanning_avg_pool,
+                                                 device=device)
         self.shared_dense_in = nn.Linear(self.obs_encoders.out_features, 2 * units,
                                          device=device)
         self.shared_resblock0 = LinearResblock(2 * units, device=device)
@@ -227,8 +250,9 @@ class VirtualSensorNet(nn.Module):
         x = getattr(self, f"{name}_resblock")(x)
         return getattr(self, f"{name}_dense_out")(x)
 
-    def forward(self, observations):
-        x = torch.relu(self.shared_dense_in(self.obs_encoders(observations)))
+    def forward(self, observations, *, dtype=None, fold_tail: bool = False):
+        x = self.obs_encoders(observations, dtype=dtype, fold_tail=fold_tail)
+        x = torch.relu(self.shared_dense_in(x))
         x = self.shared_resblock1(self.shared_resblock0(x))
         z = self._head("z_layer", x[:, : self.units])
         if self.noise_R_tril_diag is None:
@@ -269,8 +293,9 @@ class KFWeightNet(nn.Module):
         self.fusion_resblock0 = LinearResblock(units, device=device)
         self.fusion_dense_out = nn.Linear(units, modality_count * state_dim, device=device)
 
-    def forward(self, observations):
-        x = torch.relu(self.fusion_dense_in(self.obs_encoders(observations)))
+    def forward(self, observations, *, dtype=None, fold_tail: bool = False):
+        x = self.obs_encoders(observations, dtype=dtype, fold_tail=fold_tail)
+        x = torch.relu(self.fusion_dense_in(x))
         x = self.fusion_dense_out(self.fusion_resblock0(x))
         if self.weighting_type == "sigmoid":
             x = torch.sigmoid(x)
@@ -343,11 +368,13 @@ class LSTMFilterNet(nn.Module):
     once); ``lstm_step`` advances the cells by one step."""
 
     def __init__(self, state_dim: int, units: int = 64, lstm_hidden_dim: int = 512,
-                 lstm_num_layers: int = 2, control_dim: int = 7, *, device=None):
+                 lstm_num_layers: int = 2, control_dim: int = 7,
+                 spanning_avg_pool: bool = False, *, device=None):
         super().__init__()
         self.lstm_hidden_dim = lstm_hidden_dim
         self.lstm_num_layers = lstm_num_layers
-        self.obs_encoders = _ObservationEncoders(units, MODALITY_ORDER, device=device)
+        self.obs_encoders = _ObservationEncoders(units, MODALITY_ORDER, spanning_avg_pool,
+                                                 device=device)
         self.control_layers = MLPEncoder(control_dim, units, device=device)
         self.fusion_dense = nn.Linear(self.obs_encoders.out_features + units, units,
                                       device=device)
@@ -362,9 +389,10 @@ class LSTMFilterNet(nn.Module):
     def cells(self) -> Tuple[OptimizedLSTMCell, ...]:
         return tuple(getattr(self, f"lstm_{i}") for i in range(self.lstm_num_layers))
 
-    def encode(self, observations, controls) -> torch.Tensor:
-        """Fused features (B, units) of B frames."""
-        merged = torch.cat([self.obs_encoders(observations),
+    def encode(self, observations, controls, *, fold_tail: bool = False) -> torch.Tensor:
+        """Fused features (B, units) of B frames. The LSTM takes the folded
+        tail but no compute dtype, as in the JAX package."""
+        merged = torch.cat([self.obs_encoders(observations, fold_tail=fold_tail),
                             self.control_layers(controls)], dim=-1)
         return self.fusion_resblock(torch.relu(self.fusion_dense(merged)))
 
@@ -383,6 +411,7 @@ class LSTMFilterNet(nn.Module):
         state = self.output_dense_out(torch.relu(self.output_dense_in(x)))
         return tuple(new_carry), state
 
-    def forward(self, observations, controls, carry):
+    def forward(self, observations, controls, carry, *, fold_tail: bool = False):
         """One filter step."""
-        return self.lstm_step(carry, self.encode(observations, controls))
+        return self.lstm_step(carry, self.encode(observations, controls,
+                                                 fold_tail=fold_tail))

@@ -3,15 +3,16 @@
 CLIs.
 
 The flags are the JAX package's, so a command line written for it parses
-here. The port has no multi-device path yet (ROADMAP A13) and no serving
-stack (ROADMAP A8): a parallelism flag, or ``--serving``, raises
-``NotImplementedError`` naming the item rather than run on one device or in
-fp32 without saying so.
+here. ``--serving`` sets ``MMF_TPU_SERVING=1``, as in the JAX package. The
+port has no multi-device path yet (ROADMAP A13): a parallelism flag raises
+``NotImplementedError`` naming the item rather than run on one device
+without saying so.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 _PARALLELISM_FLAGS = ("data_parallel", "pipeline_stages", "pipeline_microbatches",
                       "particle_shards")
@@ -31,19 +32,17 @@ def add_parallelism_args(parser: argparse.ArgumentParser) -> None:
 
 def add_serving_arg(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--serving", action="store_true",
-                        help="the serving stack, as MMF_TPU_SERVING=1 (not ported "
-                             "yet: raises, ROADMAP A8)")
+                        help="the serving stack (bf16 encoder compute and the folded "
+                             "encoder tail), as MMF_TPU_SERVING=1; the per-knob "
+                             "MMF_TPU_{BF16,FOLD_ENC} envs still override each part")
 
 
 def apply_serving_arg(args) -> None:
-    """Refuse ``--serving``: the port has no bf16 encoders or folded encoder
-    tail yet. (Set in the environment, MMF_TPU_SERVING=1 raises as well,
-    when a model is built.)"""
+    """Set ``MMF_TPU_SERVING=1`` from ``--serving``. Runs before any model
+    is built: ``StatefulFilter`` reads the serving knobs when it is built
+    (``filtering/wrappers.py::apply_serving_knobs``)."""
     if getattr(args, "serving", False):
-        raise NotImplementedError(
-            "--serving asks for bf16 encoder compute and the folded encoder tail, "
-            "which the PyTorch port does not have yet (ROADMAP A8)"
-        )
+        os.environ["MMF_TPU_SERVING"] = "1"
 
 
 def meshes_from_args(args) -> None:

@@ -4,7 +4,9 @@
         --model-type DoorCrossmodalParticleFilter --experiment-name NAME [--resume]
 
 The JAX CLI's flags (``--model-type`` from ``DoorTask.model_types``, the
-dataset flags, the parallelism flags and ``--serving``, which raise here),
+dataset flags, ``--serving``, which sets MMF_TPU_SERVING=1 (the curriculum
+trains without the serving transforms and evaluates with them), and the
+parallelism flags, which raise here),
 its metadata keys, its per-class curricula (``run_curriculum``) run through
 ``ResumableCurriculum``, and its final ``run_eval``. Runs on ``cuda`` unless
 ``--device`` says otherwise. Checkpoints, metadata and logs go to

@@ -9,9 +9,11 @@
   parameter gets a gradient (zeros where none reached it), frozen paths'
   gradients are zeroed, Adam steps.
 - Every random number a loop needs per batch comes from ``draw_noise``.
-- The JAX package strips serving-only transforms (folded encoder tail,
-  stacked encoders, bf16 compute) from a def before training; the port has
-  none of them, so there is nothing to strip.
+- The serving transforms (the folded encoder tail, stacked encoders, bf16
+  encoder compute) are stripped from a def before it trains
+  (``_strip_serving_transforms``), as in the JAX package: a model built
+  under ``MMF_TPU_SERVING=1`` trains exactly as a plain one, and its own
+  def, which eval reads, keeps them.
 
 Losses:
   dynamics single-step / recurrent: MSE of predicted vs true next states
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from ..filtering import base as _base
+from ..utils.precision import with_compute_dtype, with_fold_tail, with_stacked_encoders
 from .optim import apply_gradients, get_named_optimizer
 
 
@@ -43,6 +46,17 @@ def draw_noise(generator: torch.Generator, shapes, device):
     pretraining)."""
     return tuple(torch.randn(tuple(s), generator=generator, device=device)
                  for s in shapes)
+
+
+def _strip_serving_transforms(defn):
+    """`defn` without the serving-only execution transforms (JAX
+    loops.py:46-68): no folded tail and no stacked encoders (the same maps
+    on the same parameters, so training without them is exact and skips
+    rebuilding the folded weight every step) and fp32 encoders (bf16 would
+    change training's numerics). The def is rebuilt around the same
+    networks, so the parameters trained are the model's own."""
+    defn = with_stacked_encoders(with_fold_tail(defn, False), False)
+    return with_compute_dtype(defn, None)
 
 
 def _model_parts(model):
@@ -164,7 +178,7 @@ def train_pf_measurement(
     """Pretrain the PF measurement model to regress the Gaussian log-density
     of states perturbed around ground truth (covariance from the dataset)."""
     root, defn = _model_parts(model)
-    mm = defn.measurement_model
+    mm = _strip_serving_transforms(defn.measurement_model)
     enabled = root._enabled_tuple
     device = root.device
     cov = torch.as_tensor(dataset.covariance, device=device)
@@ -199,7 +213,7 @@ def train_virtual_sensor(
     """Pretrain a Kalman filter's virtual sensor to regress the true state
     from the observations (the enabled modalities reach a fusion sensor)."""
     root, defn = _model_parts(model)
-    vs = defn.virtual_sensor_model
+    vs = _strip_serving_transforms(defn.virtual_sensor_model)
     enabled = root._enabled_tuple
 
     def loss_fn(batch):
@@ -263,6 +277,7 @@ def train_e2e(
             "data-parallel and pipelined training are not ported yet (ROADMAP A13)"
         )
     root, defn = _model_parts(model)
+    defn = _strip_serving_transforms(defn)
     enabled = root._enabled_tuple
 
     def loss_fn(batch):

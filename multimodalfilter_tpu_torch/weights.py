@@ -7,7 +7,8 @@ direction from ``multimodalfilter_tpu/experiments/torch_import.py``):
   * a Conv kernel in HWIO becomes OIHW;
   * the image encoder's ``dense`` kernel has its rows permuted once from
     flax's NHWC flatten order (h, w, c) to the NCHW order (c, h, w) in which
-    ``models/encoders.py`` flattens its activation.
+    ``models/encoders.py`` flattens its activation; for the spanning variant
+    from each pool's (position, c) order to (c, position).
 
 The state-dict key of a leaf is its flax path joined with dots. Every leaf is
 consumed and every module parameter filled: ``load_jax_params`` raises on
@@ -30,16 +31,22 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 
 def _dense_kernel(kernel: np.ndarray, image_encoder: Mapping = None) -> np.ndarray:
     if image_encoder is not None:
-        # (h*w*c, u) rows in NHWC order -> (c*h*w, u) rows in NCHW order.
         c = np.asarray(image_encoder["conv3"]["kernel"]).shape[-1]
         hw = kernel.shape[0] // c
         side = int(round(hw ** 0.5))
-        if side * side * c != kernel.shape[0]:
-            raise ValueError(f"image dense kernel {kernel.shape} is not a square grid")
-        kernel = (
-            kernel.reshape(side, side, c, -1).transpose(2, 0, 1, 3)
-            .reshape(kernel.shape[0], -1)
-        )
+        if side * side * c == kernel.shape[0]:
+            # (h*w*c, u) rows in NHWC order -> (c*h*w, u) rows in NCHW order.
+            kernel = (
+                kernel.reshape(side, side, c, -1).transpose(2, 0, 1, 3)
+                .reshape(kernel.shape[0], -1)
+            )
+        elif hw % 2 == 0:
+            # The spanning variant: two pools of hw/2 positions each, rows
+            # (position, c) -> (c, position) within each pool.
+            pools = kernel.reshape(2, hw // 2, c, -1).transpose(0, 2, 1, 3)
+            kernel = pools.reshape(kernel.shape[0], -1)
+        else:
+            raise ValueError(f"image dense kernel {kernel.shape} fits no encoder variant")
     return kernel.T
 
 

@@ -93,8 +93,18 @@ def test_virtual_sensor_net_matches_flax(noise_r, modalities):
 
 
 def test_virtual_sensor_net_refuses_the_push_encoder():
-    with pytest.raises(NotImplementedError, match="A11"):
-        tm.VirtualSensorNet(2, spanning_avg_pool=True)
+    """The push task's encoder (the spanning-average-pool variant), once
+    refused, is ported: the push virtual sensor (state 2) matches flax."""
+    obs = _obs(5)
+    net = jm.VirtualSensorNet(2, units=UNITS, spanning_avg_pool=True)
+    params = net.init(jax.random.PRNGKey(3), obs)["params"]
+    port = tm.VirtualSensorNet(2, units=UNITS, spanning_avg_pool=True)
+    load_jax_params(port, params)
+    z, tril = net.apply({"params": params}, obs)
+    with torch.no_grad():
+        tz, ttril = port(_torch(obs))
+    _close(tz, z, NET_ATOL)
+    _close(ttril, tril, NET_ATOL)
 
 
 @pytest.mark.parametrize("reference_reshape", [False, True])

@@ -19,6 +19,7 @@ setter.
 
 import dataclasses
 import json
+import os
 
 import jax
 import numpy as np
@@ -338,15 +339,36 @@ def test_eval_cli_from_a_saved_checkpoint(tiny_data_dir, models, tmp_path, monke
 ])
 def test_eval_cli_refuses_what_is_not_ported(tiny_data_dir, tmp_path, monkeypatch, argv,
                                              item):
+    """The parallelism flags raise naming A13. --serving, ported by A8, is
+    honoured as the JAX CLI honours it: it sets MMF_TPU_SERVING=1 (as JAX's
+    apply_serving_arg does) before the model is built, so the model the CLI
+    evaluates carries bf16 encoders and the folded tail."""
+    import argparse
+
+    from multimodalfilter_tpu.parallel.cli import apply_serving_arg as jax_apply_serving_arg
+
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(cache, "_cache_path", None)
     monkeypatch.setenv("MMF_TPU_SERVING", "0")
     monkeypatch.setenv("MMF_TPU_EVAL_BATCH_REPEATS", "0")
-    Buddy("refused", verbose=False).set_metadata(
-        {"model_type": "DoorParticleFilter", "dataset_args": DATASET_ARGS})
-    with pytest.raises(NotImplementedError, match=item):
-        eval_door.main(["--experiment-name", "refused", "--device", "cpu", *argv],
-                       cache_dir=str(tiny_data_dir))
+    buddy = Buddy("refused", tdoor.DoorParticleFilter(device="cpu"), verbose=False)
+    buddy.set_metadata({"model_type": "DoorParticleFilter", "dataset_args": DATASET_ARGS})
+    argv = ["--experiment-name", "refused", "--device", "cpu", *argv]
+    if item != "A8":
+        with pytest.raises(NotImplementedError, match=item):
+            eval_door.main(argv, cache_dir=str(tiny_data_dir))
+        return
+    buddy.save_checkpoint()
+    seen = []
+    monkeypatch.setattr(teval, "run_eval_stats", lambda **kwargs: seen.append(
+        teval.filter_model.definition.measurement_model) or {})
+    assert eval_door.main(argv, cache_dir=str(tiny_data_dir)) == {}
+    port_env = os.environ["MMF_TPU_SERVING"]
+    os.environ["MMF_TPU_SERVING"] = "0"
+    jax_apply_serving_arg(argparse.Namespace(serving=True))
+    assert port_env == os.environ["MMF_TPU_SERVING"] == "1"
+    (mm,) = seen
+    assert mm.dtype == torch.bfloat16 and mm.fold_tail
 
 
 def test_configure_refuses_a_mesh(models, tmp_path):

@@ -2,7 +2,8 @@
 ``ops/fused_step.fused_forward_reference``, which the route runs on the CPU)
 against the JAX package's fused kernel (``pallas_fused_step``, interpret
 mode) on the CPU; the packing against JAX's; the fallback of a config B3
-does not cover; and the ``MMF_TPU_*`` serving knobs of ``StatefulFilter``.
+does not cover; and the ``MMF_TPU_*`` serving knobs of ``StatefulFilter``
+(the fields each sets, against the JAX facade's).
 
 Both sides get the same weights, the same belief, noise and uniforms, and
 the same hoisted inputs: the port's ``forward_loop`` runs its encoders and
@@ -257,6 +258,34 @@ def test_fused_step_knob_sets_the_field(monkeypatch):
     assert not tdoor.DoorCrossmodalParticleFilter(device="cpu").definition.fused_step
 
 
+def _serving_fields(env, monkeypatch):
+    """(port, JAX) serving fields of DoorUnimodalParticleFilter built under
+    `env` by each facade: each measurement model's compute dtype and fold
+    (on the JAX net), the stack flag and fused_step. The JAX init is traced,
+    not compiled."""
+    from multimodalfilter_tpu.filtering import wrappers as jwrappers
+
+    for k in ("MMF_TPU_SERVING", "MMF_TPU_BF16", "MMF_TPU_FOLD_ENC", "MMF_TPU_STACK_ENC",
+              "MMF_TPU_FUSED_STEP"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    port = tdoor.DoorUnimodalParticleFilter(device="cpu").definition
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jwrappers.jax, "jit", lambda fn: lambda *a: jax.eval_shape(fn, *a))
+        jax_def = jdoor.DoorUnimodalParticleFilter().definition
+
+    def fields(defn, dtype_of, fold_of):
+        mm = defn.measurement_model
+        return ([(dtype_of(sub), fold_of(sub)) for sub in mm.measurement_models],
+                mm.stack_image_encoders, defn.fused_step)
+
+    return (fields(port, lambda sub: None if sub.dtype is None else str(sub.dtype)[6:],
+                   lambda sub: sub.fold_tail),
+            fields(jax_def, lambda sub: None if sub.net.dtype is None
+                   else str(jnp.dtype(sub.net.dtype)), lambda sub: sub.net.fold_tail))
+
+
 @pytest.mark.parametrize("env,item", [
     ({"MMF_TPU_SERVING": "1"}, "A8"),
     ({"MMF_TPU_BF16": "1"}, "A8"),
@@ -264,14 +293,18 @@ def test_fused_step_knob_sets_the_field(monkeypatch):
     ({"MMF_TPU_STACK_ENC": "1"}, "A12"),
 ])
 def test_unported_knobs_raise(monkeypatch, env, item):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=item):
-        tdoor.DoorUnimodalParticleFilter(device="cpu")
+    """The knobs once refused, now honoured (ported by ROADMAP `item`): each
+    sets the same fields as the JAX facade under the same environment."""
+    del item
+    port, want = _serving_fields(env, monkeypatch)
+    assert port == want
+    assert port != _serving_fields({}, monkeypatch)[0]
 
 
 def test_serving_knob_with_its_unported_parts_off_builds(monkeypatch):
-    for k, v in {"MMF_TPU_SERVING": "1", "MMF_TPU_BF16": "0",
-                 "MMF_TPU_FOLD_ENC": "0"}.items():
-        monkeypatch.setenv(k, v)
-    assert not tdoor.DoorUnimodalParticleFilter(device="cpu").definition.fused_step
+    """MMF_TPU_SERVING=1 with its bf16 and fold parts turned off builds the
+    plain def, as the JAX facade's: no transform, no fused step."""
+    env = {"MMF_TPU_SERVING": "1", "MMF_TPU_BF16": "0", "MMF_TPU_FOLD_ENC": "0"}
+    port, want = _serving_fields(env, monkeypatch)
+    assert port == want == _serving_fields({}, monkeypatch)[0]
+    assert not port[2]

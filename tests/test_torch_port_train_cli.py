@@ -199,11 +199,40 @@ def test_cli_wiring(cli_workspace, monkeypatch, resume):
     (["--data-parallel", "2"], NotImplementedError, "A13"),
     (["--pipeline-stages", "2"], NotImplementedError, "A13"),
 ])
-def test_cli_refuses_what_is_not_ported(cli_workspace, argv, raises, match):
-    with pytest.raises(raises, match=match):
-        train_door.main(["--model-type", "DoorParticleFilter", "--experiment-name", "x",
-                         "--device", "cpu", *argv], cache_dir=str(cli_workspace / "cache"))
-    assert not (cli_workspace / "metadata").exists()
+def test_cli_refuses_what_is_not_ported(cli_workspace, monkeypatch, argv, raises, match):
+    """The parallelism flags raise naming A13 and write nothing. --serving,
+    ported by A8, is honoured as the JAX CLI honours it: MMF_TPU_SERVING=1
+    (as JAX's apply_serving_arg sets it) before the model is built, so the
+    curriculum receives a model whose def carries bf16 encoders and the
+    folded tail (the train loops strip them; eval keeps them)."""
+    import argparse
+    import os
+
+    from multimodalfilter_tpu.parallel.cli import apply_serving_arg as jax_apply_serving_arg
+
+    argv = ["--model-type", "DoorParticleFilter", "--experiment-name", "x", "--device",
+            "cpu", *argv]
+    if match != "A8":
+        with pytest.raises(raises, match=match):
+            train_door.main(argv, cache_dir=str(cli_workspace / "cache"))
+        assert not (cli_workspace / "metadata").exists()
+        return
+    monkeypatch.setenv("MMF_TPU_SERVING", "0")
+    seen = []
+
+    def recording(filter_model, buddy, train_helpers, eval_helpers):
+        seen.append(filter_model.definition.measurement_model)
+        buddy.save_checkpoint("phase0")
+
+    monkeypatch.setattr(train_door, "run_curriculum", recording)
+    monkeypatch.setattr(teval, "run_eval", lambda **kwargs: {})
+    train_door.main(argv, cache_dir=str(cli_workspace / "cache"))
+    port_env = os.environ["MMF_TPU_SERVING"]
+    os.environ["MMF_TPU_SERVING"] = "0"
+    jax_apply_serving_arg(argparse.Namespace(serving=True))
+    assert port_env == os.environ["MMF_TPU_SERVING"] == "1"
+    (mm,) = seen
+    assert mm.dtype == torch.bfloat16 and mm.fold_tail
 
 
 def test_cli_refuses_an_unregistered_model_type(cli_workspace, capsys):
