@@ -44,7 +44,19 @@ through its kernels, and times them:
   serving features), the KF defs' ``stack_children`` on against off, and
   ``eval_door --serving`` on the train CLI's checkpoint beside its fp32
   eval; with the encoder pass's times (fp32, bf16, fold, stacked) at 1,600
-  and 51,200 frames and serving filter-steps/s at N=16 and N=512.
+  and 51,200 frames and serving filter-steps/s at N=16 and N=512;
+- the push task (``push``, state dimension D=2): PushCrossmodalParticleFilter's
+  eval loop at N=16, T=100, M=300 card against CPU through B1 (every B1 call
+  against its plain version, every step again from the card's belief) and
+  through B3 (``MMF_TPU_FUSED_STEP=1``; B3 step by step and over the whole
+  loop), one train_e2e step (B=32, L=16, M=30) card against CPU through
+  B2f and B2b, ``train_push.main`` through the crossmodal PF curriculum on 8
+  + 8 synthetic gentle_push trajectories (checkpoints phase0-phase4, falling
+  losses, frozen parts bit for bit, launches counted from the datasets, the
+  trained RMSE in cm below the untrained one), ``eval_push`` in fp32 and
+  with ``--serving``, the nine other push classes card against CPU at N=16,
+  T=20, one loader pass of the gentle_push and kloss sets, and B1, B2f, B2b
+  and B3 timed at D=2.
 
 B3 is also held against its plain version step by step (T=100 launches of
 one step, each from the plain run's belief), over a whole loop, and at other
@@ -63,6 +75,10 @@ cudaOccupancyMaxActiveClusters, as its C entry reports them; B1's and B4's
 device and host-paced times beside the floor (one copy kernel over the same
 particles) and the host cost of a call's parts; B2f's and B2b's the same at
 B=32 and B=512, and their device times with 1, 2, 4 and 8 rows a block.
+
+    python3 chip_smoke.py --phase push
+
+builds the kernels and runs the push phase alone.
 
     python3 chip_smoke.py --yardstick DIR
 
@@ -105,11 +121,13 @@ LOOP_ATOL = 1e-4  # forward_loop estimates, GPU vs CPU fp32 nets
 # B1 against its plain version at these (N, M, D, lead): the main paths'
 # shapes, then the edges of the one-pass kernel (ragged and whole warps, 1,
 # 2 and 4 slots a thread, one row, D = 8 at M = 1024) and a row whose
-# particle M // 3 leads the rest by `lead` nats (its CDF flat past it).
+# particle M // 3 leads the rest by `lead` nats (its CDF flat past it); the
+# push task's eval shape (D = 2) plain and with a leading particle.
 B1_SHAPES = [(16, 300, 3, 0.0), (16, 100, 3, 0.0), (512, 100, 3, 0.0),
              (16, 1, 2, 0.0), (16, 1000, 2, 0.0), (16, 1024, 2, 0.0),
              (16, 31, 3, 0.0), (16, 32, 3, 0.0), (16, 33, 3, 0.0), (16, 1023, 3, 0.0),
-             (1, 300, 3, 0.0), (16, 1024, 8, 0.0), (16, 300, 3, 80.0)]
+             (1, 300, 3, 0.0), (16, 1024, 8, 0.0), (16, 300, 3, 80.0),
+             (16, 300, 2, 0.0), (16, 300, 2, 80.0)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, fp32 outside the tensor cores
 
@@ -170,7 +188,7 @@ TRAJ, TRAJ_T = 32, 100
 # training paths' shapes, then the edges of the kernels' register slots (M
 # up to 32, 64, 128 and 256, 1, 2, 4 and 8 slots a lane) and of their looped
 # instance above, every D <= 8, one row, and rows whose slot M // 3 leads the
-# rest by `lead` nats.
+# rest by `lead` nats; the push task's training shapes (D = 2) last.
 B2_SHAPES = [(32, 30, 3, 0.0), (512, 30, 3, 0.0), (16, 300, 3, 0.0), (3, 1, 2, 0.0),
              (4, 1000, 8, 0.0), (2, 5000, 3, 0.0),
              (16, 31, 3, 0.0), (16, 32, 3, 0.0), (16, 33, 3, 0.0), (16, 64, 3, 0.0),
@@ -179,7 +197,7 @@ B2_SHAPES = [(32, 30, 3, 0.0), (512, 30, 3, 0.0), (16, 300, 3, 0.0), (3, 1, 2, 0
              (8, 30, 1, 0.0), (8, 30, 2, 0.0), (8, 30, 4, 0.0), (8, 30, 5, 0.0),
              (8, 30, 6, 0.0), (8, 30, 7, 0.0), (8, 30, 8, 0.0), (8, 100, 5, 0.0),
              (1, 30, 3, 0.0), (1, 1, 1, 0.0), (512, 100, 3, 0.0),
-             (32, 30, 3, 80.0), (4, 1000, 3, 80.0)]
+             (32, 30, 3, 80.0), (4, 1000, 3, 80.0), (32, 30, 2, 0.0), (512, 30, 2, 0.0)]
 B2_ROWS = (1, 2, 4, 8)  # batch rows a block that the sweep times
 # B2 against its plain version: fp32 sums over M in a warp-shuffle tree
 # against torch's reductions, expf/logf against torch's exp/log; values are
@@ -352,11 +370,13 @@ def sequences(t, n, seed):
     return obs, r.normal(size=(t, n, 7)).astype(np.float32)
 
 
-def initial_state(n):
+def initial_state(n, d=3):
+    """A belief at the origin: the door's covariance (d = 3), or 0.1 I."""
     import numpy as np
 
-    mean = np.zeros((n, 3), np.float32)
-    cov = np.tile(np.diag([0.1, 0.05, 0.05]).astype(np.float32), (n, 1, 1))
+    mean = np.zeros((n, d), np.float32)
+    diag = [0.1, 0.05, 0.05] if d == 3 else [0.1] * d
+    cov = np.tile(np.diag(diag).astype(np.float32), (n, 1, 1))
     return mean, cov
 
 
@@ -756,9 +776,9 @@ def phase_b2(pf_estimate, device) -> dict:
     return worst
 
 
-def trajectories(count, t, seed):
-    """Seeded synthetic door trajectories (states, 32x32 images, gripper
-    pos and sensors, controls)."""
+def trajectories(count, t, seed, d=3):
+    """Seeded synthetic trajectories (states of dimension d, 32x32 images,
+    gripper pos and sensors, controls)."""
     import numpy as np
 
     from multimodalfilter_tpu_torch.types import Trajectory
@@ -769,7 +789,7 @@ def trajectories(count, t, seed):
         obs = {"image": r.normal(size=(t, 32, 32)).astype(np.float32),
                "gripper_pos": r.normal(size=(t, 3)).astype(np.float32),
                "gripper_sensors": r.normal(size=(t, 7)).astype(np.float32)}
-        states = np.cumsum(0.1 * r.normal(size=(t, 3)), axis=0).astype(np.float32)
+        states = np.cumsum(0.1 * r.normal(size=(t, d)), axis=0).astype(np.float32)
         out.append(Trajectory(states, obs, r.normal(size=(t, 7)).astype(np.float32)))
     return out
 
@@ -1279,19 +1299,20 @@ def phase_b45(pf_kernels, device) -> dict:
 
 def door_sequences(defn, t, n, m, device, seed, enabled=None):
     """Seeded inputs of an eval loop on the card, and B3's operands: (obs,
-    controls, belief, eps, uniforms, ops)."""
+    controls, belief, eps, uniforms, ops), at the def's state dimension."""
     import torch
 
     from multimodalfilter_tpu_torch.ops import fused_step
     from multimodalfilter_tpu_torch.types import ParticleBelief
 
+    d = defn.state_dim
     obs, controls = sequences(t, n, seed)
     obs = {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
     controls = torch.from_numpy(controls).to(device)
     g = torch.Generator(device=device).manual_seed(seed)
-    belief = ParticleBelief(0.3 * torch.randn((n, m, 3), generator=g, device=device),
+    belief = ParticleBelief(0.3 * torch.randn((n, m, d), generator=g, device=device),
                             torch.full((n, m), -math.log(m), device=device))
-    eps = torch.randn((t, n * m, 3), generator=g, device=device)
+    eps = torch.randn((t, n * m, d), generator=g, device=device)
     uniforms = torch.rand((t, n, m), generator=g, device=device)
     with torch.no_grad():
         features, ctrl = defn.encode_sequences(obs, controls, enabled)
@@ -2312,7 +2333,7 @@ def eval_rmse(eval_helpers, task, model, work, name) -> dict:
     with contextlib.redirect_stdout(io.StringIO()), np.errstate(over="ignore"):
         r = eval_helpers.run_eval()
     return {k: r[k] for k in ("raw_rmse", "theta_rmse_deg", "x_rmse_cm", "y_rmse_cm",
-                              "filter_steps_per_sec_e2e")}
+                              "filter_steps_per_sec_e2e") if k in r}
 
 
 def phase_train_cli(fused_step, pf_kernels, pf_estimate, pf_module, device, work) -> dict:
@@ -3145,10 +3166,12 @@ def serving_model(door_models, device, env):
     return model.eval()
 
 
-def serving_eval_cli(work) -> dict:
-    """The eval CLI on the checkpoint the train_cli phase trained: fp32, then
-    --serving (bf16 encoders and the folded tail), each run_eval_stats' 20
-    repeats from the same seeded noise. The RMSE gap is bounded by what a
+def serving_eval_cli(work, eval_cli=None, experiment=CLI_EXPERIMENT,
+                     keys=("theta_rmse_deg", "x_rmse_cm", "y_rmse_cm")) -> dict:
+    """An eval CLI (`eval_cli`, the door's by default) on the checkpoint a
+    train CLI phase trained (`experiment`): fp32, then --serving (bf16
+    encoders and the folded tail), each run_eval_stats' 20 repeats from the
+    same seeded noise. The RMSE gap of each of `keys` is bounded by what a
     new noise draw moves it: 3 of the repeats' standard deviations, plus 5%
     of the mean (the trunks see features a few bf16 ulps apart, which moves
     every resampling draw near a CDF step)."""
@@ -3159,6 +3182,8 @@ def serving_eval_cli(work) -> dict:
     from multimodalfilter_tpu_torch.crossmodal import eval_helpers
     from multimodalfilter_tpu_torch.scripts.door_task import eval_door
 
+    eval_cli = eval_door if eval_cli is None else eval_cli
+
     saved = os.environ.get("MMF_TPU_SERVING")
     os.environ["MMF_TPU_SERVING"] = "0"
     runs = {}
@@ -3166,8 +3191,8 @@ def serving_eval_cli(work) -> dict:
         for name, argv in (("fp32", []), ("serving", ["--serving"])):
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
-                runs[name] = eval_door.main(["--experiment-name", CLI_EXPERIMENT, *argv],
-                                            cache_dir=work.cache_dir)
+                runs[name] = eval_cli.main(["--experiment-name", experiment, *argv],
+                                           cache_dir=work.cache_dir)
             runs[name]["wall_s"] = time.perf_counter() - t0
             sub = eval_helpers.filter_model.definition.measurement_model.measurement_models[0]
             runs[name]["encoder_dtype"] = str(sub.dtype)
@@ -3182,7 +3207,7 @@ def serving_eval_cli(work) -> dict:
     check(runs["serving"]["encoder_dtype"] == "torch.bfloat16" and runs["serving"]["fold_tail"],
           "--serving did not build bf16 encoders with the folded tail")
     gaps = {}
-    for key in ("theta_rmse_deg", "x_rmse_cm", "y_rmse_cm"):
+    for key in keys:
         f, s = runs["fp32"], runs["serving"]
         check(math.isfinite(f[f"{key}_mean"]) and math.isfinite(s[f"{key}_mean"]),
               f"eval CLI {key} not finite")
@@ -3191,7 +3216,7 @@ def serving_eval_cli(work) -> dict:
         gaps[key] = {"fp32": f[f"{key}_mean"], "serving": s[f"{key}_mean"], "gap": gap,
                      "bound": bound}
         check(gap <= bound, f"--serving eval {key}: {gaps[key]}")
-    return {"experiment": CLI_EXPERIMENT, "runs": runs, "rmse_gap": gaps}
+    return {"experiment": experiment, "runs": runs, "rmse_gap": gaps}
 
 
 def encoder_pass_ms(defn, frames: int, device) -> float:
@@ -3740,6 +3765,557 @@ def phase_yardstick_b2(old, pf_estimate, pf_module, model, trajs, device) -> Non
     emit({"phase": "yardstick_b2", "kernels": out, "launch_path_us": parts, "train": rates})
 
 
+# The push task (state = object (x, y), D = 2): PushCrossmodalParticleFilter
+# at the published width of the push model zoo (units 64, control 7, 32x32
+# images, pos 3, sensors 7), M = 300 eval and 30 train particles.
+PUSH_MAIN = "PushCrossmodalParticleFilter"
+# numpy_weights seed of the push phase's crossmodal PF: the first of 0-11
+# whose loop stays bounded over T=100 at N=4 and N=16 on these inputs on the
+# CPU (|x| < 14; seeds 0-6 ran to 1e14-1e35).
+PUSH_WEIGHTS_SEED = 7
+PUSH_OTHER_T = 20
+# The push train CLI's sets in memory from these seeds: 8 train
+# (gentle_push_1000) and 8 eval (gentle_push_10) trajectories of 100-124
+# steps under CLI_ENV; the kloss sets for one loader pass.
+PUSH_CLI_FILES = (("gentle_push_1000.hdf5", 4), ("gentle_push_10.hdf5", 5))
+PUSH_KLOSS_FILES = tuple((f"kloss_train{i}.hdf5", 6 + i) for i in range(6)) + (
+    ("kloss_val.hdf5", 12),)
+PUSH_CLI_EXPERIMENT = "chip_smoke_push"
+PUSH_CLI_PHASES = ("phase0", "phase1", "phase2", "phase3", "phase4")
+# The crossmodal PF curriculum's train_e2e calls, (L, epochs) in order, by
+# the phase that makes them (scripts/push_task/train_push.py:177-223).
+PUSH_CLI_E2E = {"phase2": [(3, 5), (8, 5), (16, 20)], "phase3": [(3, 5), (8, 5), (16, 20)],
+                "phase4": [(3, 5), (8, 5)] + [(16, 5)] * 4}
+
+
+def pf_card_vs_cpu(models, obs, controls, mean, cov, m, pf_kernels, pf_module, counters,
+                   seed, step_by_step=False) -> dict:
+    """A particle filter's eval loop on the card and on the CPU (`models`:
+    {"cuda": ..., "cpu": ...}, the same weights) from the same belief, noise
+    and uniforms, the step tail's inputs and outputs recorded on both: the
+    card's loop launches B1 once a step and no B3; every card B1 call is held
+    against its plain version (b1_along_path); the card's estimates against
+    the CPU's within LOOP_ATOL of their scale up to each trajectory's first
+    divergent draw; with `step_by_step`, every step again from the card's
+    belief (pf_steps_card_vs_cpu). Returns the card's estimates and tail
+    records beside the readings."""
+    import dataclasses
+
+    import torch
+
+    from multimodalfilter_tpu_torch.types import ParticleBelief
+
+    gpu, cpu = models["cuda"], models["cpu"]
+    device = gpu.device
+    t_len, n = controls.shape[:2]
+    d = gpu.state_dim
+    for mdl in models.values():
+        mdl.definition = dataclasses.replace(mdl.definition, num_particles_eval=m)
+    gpu.initialize_beliefs(mean=mean, covariance=cov)
+    belief0 = ParticleBelief(*(x.clone() for x in gpu.belief))
+    g = torch.Generator(device=device).manual_seed(seed)
+    eps = torch.randn((t_len, n * m, d), generator=g, device=device)
+    uni = torch.rand((t_len, n, m), generator=g, device=device)
+    records = {"cuda": [], "cpu": []}
+    into = ["cuda"]
+    real_tail = pf_module.pf_update_and_resample
+
+    def recording_tail(log_weights, log_liks, particles, uniforms, **kwargs):
+        out = real_tail(log_weights, log_liks, particles, uniforms, **kwargs)
+        records[into[0]].append((log_weights, log_liks, uniforms, particles, kwargs, out))
+        return out
+
+    ests = {}
+    pf_module.pf_update_and_resample = recording_tail
+    try:
+        for name, mdl in models.items():
+            into[0] = name
+            mdl.belief = ParticleBelief(*(x.to(mdl.device).clone() for x in belief0))
+            for c in counters.values():
+                c.launches = 0
+            ests[name] = mdl.forward_loop(observations=obs, controls=controls,
+                                          eps_seq=eps.to(mdl.device),
+                                          uniforms_seq=uni.to(mdl.device))
+            if name == "cuda":
+                torch.cuda.synchronize()
+                launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        pf_module.pf_update_and_resample = real_tail
+    check(launches == {"b1": t_len, "b3": 0}, f"per-step loop launches {launches}")
+    est = ests["cuda"]
+    check(tuple(est.shape) == (t_len, n, d) and bool(torch.isfinite(est).all()),
+          f"card estimates {tuple(est.shape)}")
+    b1 = b1_along_path(pf_kernels, records["cuda"])
+    gpu_lls = torch.stack([r[1] for r in records["cuda"]]).cpu()
+    first = first_divergence(records["cpu"], gpu_lls, pf_kernels)
+    err, scale, steps = compare_through(est.cpu(), ests["cpu"], first)
+    check(steps > 0, "the card's draws diverged from the CPU's at the first step")
+    check(err <= LOOP_ATOL * max(1.0, scale), f"card vs CPU estimates {err} at scale {scale}")
+    readings = {"launches": launches, "b1_along_path": b1, "max_abs_err_est": err,
+                "est_scale": scale, "trajectory_steps_compared": steps,
+                "trajectories_never_diverged": int((first == t_len).sum())}
+    if step_by_step:
+        readings["step_by_step"] = pf_steps_card_vs_cpu(models, obs, controls, belief0, eps,
+                                                        uni, pf_kernels, pf_module)
+    return {"est": est, "records": records["cuda"], "belief0": belief0, "eps": eps,
+            "uniforms": uni, "launches": launches, "readings": readings}
+
+
+def pf_steps_card_vs_cpu(models, obs, controls, belief0, eps, uni, pf_kernels,
+                         pf_module) -> dict:
+    """Each step of the card's loop again on both devices from the card's
+    belief at that step, so that a draw on a tie at one step cannot carry
+    into the next: the estimates (taken before resampling) within LOOP_ATOL
+    of their scale at every step, and the resampled particles at every slot
+    whose uniform is off a tie of either device's CDF and picks the same
+    index from both (where the two trunks' rounding alone moves a CDF entry
+    past a uniform, the slots hold other particles; those draws are
+    counted)."""
+    import torch
+
+    from multimodalfilter_tpu_torch.types import ParticleBelief
+
+    gdefn, cdefn = models["cuda"].definition, models["cpu"].definition
+    cpu = torch.device("cpu")
+    est_err = part_err = 0.0
+    ties = moved = 0
+    tails = []
+    real_tail = pf_module.pf_update_and_resample
+
+    def recording_tail(log_weights, log_liks, particles, uniforms, **kwargs):
+        tails.append((log_weights.cpu(), log_liks.cpu(), uniforms.cpu()))
+        return real_tail(log_weights, log_liks, particles, uniforms, **kwargs)
+
+    belief = belief0
+    pf_module.pf_update_and_resample = recording_tail
+    try:
+        with torch.no_grad():
+            for i in range(controls.shape[0]):
+                sl = slice(i, i + 1)
+                obs_i = {k: torch.from_numpy(v[sl]) for k, v in obs.items()}
+                ctrl_i = torch.from_numpy(controls[sl])
+                tails.clear()
+                nb_gpu, e_gpu = gdefn.forward_loop(
+                    belief, {k: v.to(eps.device) for k, v in obs_i.items()},
+                    ctrl_i.to(eps.device), train=False, eps_seq=eps[sl], uniforms_seq=uni[sl])
+                nb_cpu, e_cpu = cdefn.forward_loop(
+                    ParticleBelief(*(x.to(cpu) for x in belief)), obs_i, ctrl_i, train=False,
+                    eps_seq=eps[sl].cpu(), uniforms_seq=uni[sl].cpu())
+                picks, ok = [], None
+                for lw, ll, u in tails:
+                    _, cdf = pf_kernels.resample_cdf(lw, ll)
+                    picks.append(torch.searchsorted(cdf, u.contiguous()))
+                    off = pf_kernels.draw_gaps(lw, ll, u) > TIE
+                    ok = off if ok is None else ok & off
+                same = picks[0] == picks[1]
+                ties += int((~ok).sum())
+                moved += int((ok & ~same).sum())
+                ok &= same
+                scale = max(1.0, float(e_cpu.abs().max()))
+                est_err = max(est_err, float((e_gpu.cpu() - e_cpu).abs().max()) / scale)
+                diff = (nb_gpu.particles.cpu() - nb_cpu.particles).abs().amax(-1)
+                if bool(ok.any()):
+                    part_err = max(part_err, float(diff[ok].max()) / max(
+                        1.0, float(nb_cpu.particles.abs().max())))
+                belief = nb_gpu
+    finally:
+        pf_module.pf_update_and_resample = real_tail
+    out = {"steps": controls.shape[0], "max_rel_err_est": est_err,
+           "max_rel_err_particles_same_draw": part_err, "tie_draws": ties,
+           "draws_moved_by_trunk_rounding": moved}
+    check(est_err <= LOOP_ATOL and part_err <= LOOP_ATOL, f"step by step card vs CPU: {out}")
+    return out
+
+
+def push_loops(push_models, fused_step, pf_kernels, pf_module, device) -> dict:
+    """PushCrossmodalParticleFilter's eval loop at N=16, T=100, M=300 (numpy
+    weights): per step through B1 card against CPU, every B1 call against
+    its plain version; the fused route (MMF_TPU_FUSED_STEP=1, one B3 launch)
+    against the per-step run and B3 step by step and over the whole loop;
+    filter-steps/s of both routes, in turns."""
+    import dataclasses
+
+    import torch
+
+    cls = push_models.PushCrossmodalParticleFilter
+    counters = {"b1": pf_kernels.launch_b1, "b3": fused_step.fused_forward_kernel}
+    models = dict(zip(("cuda", "cpu"), kf_pair(cls, device, PUSH_WEIGHTS_SEED)))
+    obs, controls = sequences(T, N, seed=90)
+    mean, cov = initial_state(N, 2)
+    step = pf_card_vs_cpu(models, obs, controls, mean, cov, M, pf_kernels, pf_module,
+                          counters, seed=91, step_by_step=True)
+    gpu = models["cuda"]
+
+    fused = with_env({"MMF_TPU_FUSED_STEP": "1"}, lambda: cls(device=device))
+    check(fused.definition.fused_step, "MMF_TPU_FUSED_STEP=1 did not set fused_step")
+    fused.params.load_state_dict(gpu.params.state_dict())
+    fused.eval()
+    fused_defn = dataclasses.replace(fused.definition, num_particles_eval=M)
+    fused.definition = fused_defn
+    belief0, eps, uni = step["belief0"], step["eps"], step["uniforms"]
+    fused.belief = type(belief0)(*(x.clone() for x in belief0))
+    for c in counters.values():
+        c.launches = 0
+    est_fused = fused.forward_loop(observations=obs, controls=controls, eps_seq=eps,
+                                   uniforms_seq=uni)
+    torch.cuda.synchronize()
+    fused_launches = {k: c.launches for k, c in counters.items()}
+    check(fused_step.packing_report() is None,
+          f"the push fused route fell back: {fused_step.packing_report()}")
+    check(fused_launches == {"b1": 0, "b3": 1}, f"push fused launches {fused_launches}")
+    check(bool(torch.isfinite(est_fused).all()), "push fused estimates")
+    with torch.no_grad():
+        obs_d = {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
+        features, ctrl = fused_defn.encode_sequences(obs_d, torch.from_numpy(controls).to(device))
+        ops = fused_step.pack_operands(fused_defn, features, ctrl, eps, None, M)
+        lls = torch.empty((T, N, M), device=device)
+        _, est_direct = fused_step.fused_forward_kernel(ops, belief0, uni, log_liks_out=lls)
+        torch.cuda.synchronize()
+    route_err = float((est_direct - est_fused).abs().max())
+    check(route_err <= 1e-6 * max(1.0, float(est_fused.abs().max())),
+          f"the push route and a direct B3 launch differ by {route_err}")
+    first = first_divergence(step["records"], lls, pf_kernels)
+    err, scale, steps = compare_through(est_fused, step["est"], first)
+    check(steps > 0, "the per-step draws diverged from B3's at the first step")
+    check(err <= LOOP_ATOL * max(1.0, scale), f"push fused vs per-step estimates {err}")
+    b3_steps = b3_per_step(fused_step, pf_kernels, ops, belief0, uni)
+    b3_whole = b3_whole_loop(fused_step, pf_kernels, ops, belief0, uni)
+
+    rates = {}
+    o_d, c_d = obs_d, torch.from_numpy(controls).to(device)
+    for route, mdl in (("per_step", gpu), ("fused", fused), ("fused_2", fused),
+                       ("per_step_2", gpu)):
+        def run():
+            mdl.initialize_beliefs(mean=mean, covariance=cov)
+            mdl.forward_loop(observations=o_d, controls=c_d)
+
+        ms, host_ms = loop_ms(run, repeats=3)
+        rates[route] = {"ms_per_loop": ms, "host_ms_per_loop": host_ms,
+                        "filter_steps_per_s": T * N / (ms / 1e3)}
+    return {"model": gpu, "ops": ops, "belief0": belief0, "uniforms": uni,
+            "launches": {"b1": step["launches"]["b1"], "b3": fused_launches["b3"]},
+            "readings": {"per_step_card_vs_cpu": step["readings"],
+                         "fused": {"launches": fused_launches, "route_vs_direct_launch": route_err,
+                                   "vs_per_step": {"max_abs_err_est": err, "est_scale": scale,
+                                                   "trajectory_steps_compared": steps},
+                                   "b3_per_step": b3_steps, "b3_whole_loop": b3_whole},
+                         "rates_N16": rates}}
+
+
+def push_kernel_times(fused_step, pf_kernels, pf_estimate, ops, belief0, uniforms,
+                      device) -> dict:
+    """B1 at (16, 300, 2), B2f and B2b at (32, 30, 2) and B3 over the push
+    loop (T=100, N=16, M=300, D=2, K=2): host-paced per launch (CUDA events
+    around back-to-back calls), device time (torch.profiler), the plain
+    version's time and the bound."""
+    import torch
+
+    out = {}
+    reps = 200
+
+    def many(fn, *args, **kwargs):
+        return lambda: [fn(*args, **kwargs) for _ in range(reps)]
+
+    args = b1_inputs(N, M, 2, device, seed=92)
+    bound, bound_by = tail_bound_ms(N, M, 2, soft=False)
+    out["b1"] = {"shape": [N, M, 2],
+                 "ms": cuda_ms(many(pf_kernels.pf_update_and_resample, *args), repeats=5) / reps,
+                 "plain_ms": cuda_ms(many(pf_kernels.pf_update_and_resample_reference, *args),
+                                     repeats=5) / reps,
+                 "device_us": device_us(lambda: pf_kernels.pf_update_and_resample(*args),
+                                        ROW_TAIL_KERNEL),
+                 "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    lw, ll, particles, g_lw, g_est = b2_inputs(TRAIN_B, TRAIN_M, 2, device, seed=93)
+    lwn, est = pf_estimate.pf_update_estimate_reference(lw, ll, particles)
+    for name, k_fn, p_fn, a, backward in (
+        ("b2f", pf_estimate.pf_update_estimate_fwd,
+         pf_estimate.pf_update_estimate_reference, (lw, ll, particles), False),
+        ("b2b", pf_estimate.pf_update_estimate_bwd,
+         pf_estimate.pf_update_estimate_backward_reference,
+         (lwn, particles, est, g_lw, g_est), True),
+    ):
+        bound, bound_by = b2_bound_ms(TRAIN_B, TRAIN_M, 2, backward)
+        out[name] = {"shape": [TRAIN_B, TRAIN_M, 2],
+                     "ms": cuda_ms(many(k_fn, *a), repeats=5) / reps,
+                     "plain_ms": cuda_ms(many(p_fn, *a), repeats=5) / reps,
+                     "device_us": device_us(lambda: k_fn(*a), "pf_estimate_bwd" if backward
+                                            else "pf_estimate_fwd"),
+                     "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+    with torch.no_grad():
+        k_ms = cuda_ms(lambda: fused_step.fused_forward_kernel(ops, belief0, uniforms),
+                       repeats=5)
+        p_ms = cuda_ms(lambda: fused_step.fused_forward_reference(ops, belief0, uniforms),
+                       repeats=2, warmup=1)
+        dev = device_us(lambda: fused_step.fused_forward_kernel(ops, belief0, uniforms),
+                        "pf_fused_forward", reps=3)
+    bound, bound_by, flops = b3_bound_ms(T, N, M, 2, 2)
+    plan = fused_step.launch_plan(N, M)
+    out["b3"] = {"shape": [T, N, M, 2, 2], "ms": k_ms, "plain_ms": p_ms,
+                 "device_ms": None if dev is None else dev / 1e3, "bound_ms": bound,
+                 "bound_by": bound_by, "flops": flops, "cluster": plan.cluster,
+                 "blocks": plan.blocks, "library_ms": None}
+    return out
+
+
+def push_train_step(push_models, pf_estimate, device) -> dict:
+    """One train_e2e optimizer step of PushCrossmodalParticleFilter (B=32,
+    L=16, M=30, numpy weights) on the card against the CPU (train_path's
+    limits), B2f and B2b launched L-1 times each; then train filter-steps/s
+    of whole B=32 epochs."""
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset
+    from multimodalfilter_tpu_torch.train import loops, optim
+
+    import torch
+
+    cls = push_models.PushCrossmodalParticleFilter
+    gpu, cpu = kf_pair(cls, device, PUSH_WEIGHTS_SEED)
+    trajs = trajectories(TRAJ, TRAJ_T, seed=94, d=2)
+    ds = SubsequenceDataset(trajs, TRAIN_L)
+    batch = {"states": ds.states[:TRAIN_B], "controls": ds.controls[:TRAIN_B],
+             "obs": {k: v[:TRAIN_B] for k, v in ds.observations.items()}}
+    g = torch.Generator().manual_seed(95)
+    noise = (torch.randn((TRAIN_B, TRAIN_M, 2), generator=g),
+             torch.randn((TRAIN_L - 1, TRAIN_B * TRAIN_M, 2), generator=g))
+    b2f, b2b = pf_estimate.pf_update_estimate_fwd, pf_estimate.pf_update_estimate_bwd
+    b2f.launches = b2b.launches = 0
+    step = step_card_vs_cpu(gpu, cpu, batch, noise, loops, optim,
+                            "push_train_step_card_vs_cpu")
+    launches = {"b2f": b2f.launches, "b2b": b2b.launches}
+    check(launches == {"b2f": TRAIN_L - 1, "b2b": TRAIN_L - 1},
+          f"push train step launches {launches}")
+    rates = train_rates(gpu, [(TRAIN_B, ds)], "push")
+    return {"launches": launches, "readings": {"card_vs_cpu_step": step, "launches": launches,
+                                               "train_rates": rates}}
+
+
+def push_train_cli(fused_step, pf_kernels, pf_estimate, device, work) -> dict:
+    """train_push.main on PushCrossmodalParticleFilter through its full
+    curriculum (phase0-phase4) on the push smoke-train sets: checkpoints and
+    metadata, finite losses with the single-step dynamics and both
+    measurement pretrainings falling, the frozen parts bit for bit, B1, B2f
+    and B2b launches against counts from the datasets, the trained position
+    RMSE in cm below the untrained model's."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from multimodalfilter_tpu_torch.crossmodal import (
+        _eval_batching,
+        eval_helpers,
+        train_helpers,
+    )
+    from multimodalfilter_tpu_torch.crossmodal.tasks import PushTask
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.scripts.push_task import train_push
+
+    cls = PushTask.model_types[PUSH_MAIN]
+    counters = {"b1": pf_kernels.launch_b1, "b2f": pf_estimate.pf_update_estimate_fwd,
+                "b2b": pf_estimate.pf_update_estimate_bwd,
+                "b3": fused_step.fused_forward_kernel}
+    init = {k: v.cpu() for k, v in cls(device=device).params.state_dict().items()}
+    untrained = eval_rmse(eval_helpers, PushTask, cls(device=device), work, "push_untrained")
+    for c in counters.values():
+        c.launches = 0
+    results, probe, wall_s = run_cli(
+        train_push, (train_helpers, eval_helpers, Buddy),
+        ["--model-type", PUSH_MAIN, "--experiment-name", PUSH_CLI_EXPERIMENT], work)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    trajs = train_helpers.trajectories
+
+    check([label for label, _ in probe.saves] == list(PUSH_CLI_PHASES),
+          f"push checkpoints {probe.saves}")
+    ckpt = {label: checkpoint_params(work, PUSH_CLI_EXPERIMENT, label)["params"]
+            for label in PUSH_CLI_PHASES}
+    with open(os.path.join(work.path, "metadata", f"{PUSH_CLI_EXPERIMENT}.json")) as f:
+        meta = json.load(f)
+    check(set(meta) == CLI_KEYS, f"push metadata keys {sorted(meta)}")
+    series = metric_series(work, PUSH_CLI_EXPERIMENT)
+    check(all(np.isfinite(v).all() for v in series.values()), "a non-finite push loss")
+    single, meas = series["train/dynamics_single_step"], series["train/pf_measurement"]
+    passes = 3 * 10  # train_pf_measurement(epochs=3): 10 passes an epoch
+    check(len(single) == 5 and len(meas) == 2 * passes, f"push loss series {len(single)}, "
+          f"{len(meas)}")
+    falling = {"dynamics_single_step": (single[0], single[-1]),
+               "measurement_image": (meas[0], meas[passes - 1]),
+               "measurement_pos_sensors": (meas[passes], meas[-1])}
+    for name, (first, last) in falling.items():
+        check(last < first, f"push {name} loss did not fall: {first} -> {last}")
+    # Frozen or disabled parts whose gradients are zero from an optimizer's
+    # first step stay bit for bit. (Unlike the door curriculum, the push
+    # curriculum keeps its e2e optimizer from phase 2 on, as the JAX CLI
+    # does: in phase 4 Adam's moments from phase 3 still move the frozen
+    # likelihood models, whose gradients are zeroed, in both packages.)
+    frozen = {
+        "gate_is_init_in_phase0_to_3": all(same_under(ckpt[p], init, GATE)
+                                           for p in PUSH_CLI_PHASES[:4]),
+        "gate_moved_in_phase4": not same_under(ckpt["phase4"], init, GATE),
+        "dynamics_same_in_phase1_to_4": all(same_under(ckpt[p], ckpt["phase1"], DYNAMICS)
+                                            for p in PUSH_CLI_PHASES[2:]),
+        "pos_sensors_likelihood_is_init_in_phase0_to_2": all(
+            same_under(ckpt[p], init, LIKELIHOODS + "1.") for p in PUSH_CLI_PHASES[:3]),
+    }
+    check(all(frozen.values()), f"push frozen parts {frozen}")
+    frozen["likelihoods_same_in_phase3_and_4"] = same_under(ckpt["phase4"], ckpt["phase3"],
+                                                            LIKELIHOODS)
+    e2e = probe.of("train_e2e")
+    check([(c["kwargs"]["subsequence_length"], c["kwargs"]["epochs"]) for c in e2e]
+          == sum(PUSH_CLI_E2E.values(), []), "push train_e2e calls")
+    t_eval = _eval_batching.get_eval_batch()[0].shape[0]
+    want = {"b1": eval_loops(probe) * (t_eval - 1), "b2f": e2e_launches(e2e, trajs),
+            "b2b": e2e_launches(e2e, trajs), "b3": 0}
+    check(launches == want, f"push CLI launches {launches}, expected {want}")
+
+    def position_cm(r):
+        return math.sqrt((r["x_rmse_cm"] ** 2 + r["y_rmse_cm"] ** 2) / 2)
+
+    trained_cm, untrained_cm = position_cm(results), position_cm(untrained)
+    check(np.isfinite(results["raw_rmse"]).all() and trained_cm < untrained_cm,
+          f"push trained RMSE {trained_cm} cm against untrained {untrained_cm}")
+    log_evals = probe.of("log_eval")
+    return {"launches": launches, "readings": {
+        "wall_s": wall_s, "phase_wall_s": phase_walls(probe, PUSH_CLI_PHASES),
+        "cut": {"train_trajectories": len(trajs),
+                "steps": [int(min(len(t.states) for t in trajs)),
+                          int(max(len(t.states) for t in trajs))],
+                "eval_T": t_eval, "env": CLI_ENV},
+        "checkpoints": list(PUSH_CLI_PHASES), "launches": launches,
+        "expected_launches": want, "losses_falling": falling, "frozen": frozen,
+        "rmse": {"untrained": untrained, "trained": {k: results[k] for k in (
+            "raw_rmse", "x_rmse_cm", "y_rmse_cm")},
+                 "position_cm": {"untrained": untrained_cm, "trained": trained_cm}},
+        "train_filter_steps_per_s": cli_train_rates(e2e, trajs),
+        "ms_per_log_eval": 1e3 * statistics.mean(c["s"] for c in log_evals),
+        "log_evals": len(log_evals)}}
+
+
+def push_other_classes(push_models, fused_step, pf_kernels, pf_module, device) -> dict:
+    """The nine other push classes card against CPU at N=16, T=20 (numpy
+    weights, KF_WEIGHTS_SEED): the PFs through pf_card_vs_cpu (M=300), the
+    KFs step by step from a shared belief and free-running (kf_card_vs_cpu),
+    the LSTM over the whole loop."""
+    import torch
+
+    from multimodalfilter_tpu_torch.crossmodal.tasks import PushTask
+    from multimodalfilter_tpu_torch.filtering import ParticleFilterDef
+    from multimodalfilter_tpu_torch.filtering.lstm import LSTMFilterDef
+
+    obs, controls = sequences(PUSH_OTHER_T, N, seed=96)
+    mean, cov = initial_state(N, 2)
+    counters = {"b1": pf_kernels.launch_b1, "b3": fused_step.fused_forward_kernel}
+    out, b1_launches = {}, 0
+    for name in sorted(PushTask.model_types):
+        if name == PUSH_MAIN:
+            continue
+        gpu, cpu = kf_pair(PushTask.model_types[name], device, KF_WEIGHTS_SEED)
+        defn = gpu.definition
+        if isinstance(defn, ParticleFilterDef):
+            r = pf_card_vs_cpu({"cuda": gpu, "cpu": cpu}, obs, controls, mean, cov, M,
+                               pf_kernels, pf_module, counters, seed=97)
+            b1_launches += r["launches"]["b1"]
+            out[name] = r["readings"]
+        elif isinstance(defn, LSTMFilterDef):
+            ests = {}
+            for key, mdl in (("cuda", gpu), ("cpu", cpu)):
+                mdl.initialize_beliefs(mean=mean, covariance=cov)
+                ests[key] = mdl.forward_loop(observations=obs, controls=controls).cpu()
+            err = float((ests["cuda"] - ests["cpu"]).abs().max())
+            scale = float(ests["cpu"].abs().max())
+            check(bool(torch.isfinite(ests["cuda"]).all())
+                  and err <= LOOP_ATOL * max(1.0, scale), f"{name} card vs CPU {err}")
+            out[name] = {"max_abs_err": err, "scale": scale}
+        else:
+            out[name] = kf_card_vs_cpu({"cuda": gpu, "cpu": cpu}, obs, controls, mean, cov)
+    return {"b1_launches": b1_launches, "readings": out}
+
+
+def push_loader_pass(cache, synthetic) -> dict:
+    """One pass of PushTask's loader over the MuJoCo and kloss train and
+    eval sets (in memory under the current cache path): the push shapes,
+    finite arrays."""
+    import numpy as np
+
+    from multimodalfilter_tpu_torch.crossmodal.tasks import PushTask
+
+    for name, seed in PUSH_KLOSS_FILES:
+        cache.keep_in_memory(name, synthetic.named_trajectories(name, seed=seed))
+    out = {}
+    for kloss in (False, True):
+        for split in ("train", "eval"):
+            trajs = getattr(PushTask, f"get_{split}_trajectories")(**EVAL_DATASET_ARGS,
+                                                                  kloss_dataset=kloss)
+            for states, obs, controls in trajs:
+                t = states.shape[0]
+                shapes = {"states": states.shape, "controls": controls.shape,
+                          **{k: v.shape for k, v in obs.items()}}
+                check(shapes == {"states": (t, 2), "controls": (t, 7), "image": (t, 32, 32),
+                                 "gripper_pos": (t, 3), "gripper_sensors": (t, 7)},
+                      f"push loader shapes {shapes}")
+                check(all(np.isfinite(x).all() for x in (states, controls, *obs.values())),
+                      "push loader: non-finite values")
+            out[f"{'kloss' if kloss else 'mujoco'}_{split}"] = {
+                "trajectories": len(trajs), "steps": sum(s.shape[0] for s, _, _ in trajs)}
+    return out
+
+
+def phase_push(fused_step, pf_kernels, pf_estimate, pf_module, device, door_rates) -> dict:
+    """The push task on the card (push_loops, push_kernel_times,
+    push_train_step, push_train_cli, eval_push through serving_eval_cli,
+    push_other_classes, push_loader_pass), with each section's wall s and
+    the door's filter-steps/s from this run's serving phase beside the
+    push's."""
+    from multimodalfilter_tpu_torch.crossmodal import push_models
+    from multimodalfilter_tpu_torch.data import cache, synthetic
+    from multimodalfilter_tpu_torch.scripts.push_task import eval_push
+
+    out = {"phase": "push", "model": PUSH_MAIN, "units": 64, "state_dim": 2, "N": N, "T": T,
+           "M": M, "weights_seed": PUSH_WEIGHTS_SEED, "limits": {
+               "loop_atol": LOOP_ATOL, "est_atol_kernel": EST_ATOL_KERNEL,
+               "step": [STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_UPDATE_ATOL_LR]}}
+    section_s, t_section = {}, [time.perf_counter()]
+    start = t_section[0]
+
+    def section(name):
+        now = time.perf_counter()
+        section_s[name] = now - t_section[0]
+        t_section[0] = now
+
+    loops = push_loops(push_models, fused_step, pf_kernels, pf_module, device)
+    out["loops"] = loops["readings"]
+    if door_rates is not None:
+        out["door_rates_N16"] = {k: door_rates[f"N{N}_{k}"]["filter_steps_per_s"]
+                                 for k in ("per_step", "fused")}
+    section("loops")
+    out["kernel_times"] = times = push_kernel_times(
+        fused_step, pf_kernels, pf_estimate, loops["ops"], loops["belief0"], loops["uniforms"],
+        device)
+    section("kernel_times")
+    train = push_train_step(push_models, pf_estimate, device)
+    out["train_step"] = train["readings"]
+    section("train_step")
+    with cli_workspace(files=PUSH_CLI_FILES) as work:
+        cli = push_train_cli(fused_step, pf_kernels, pf_estimate, device, work)
+        out["train_cli"] = cli["readings"]
+        section("train_cli")
+        out["eval_cli"] = serving_eval_cli(work, eval_push, PUSH_CLI_EXPERIMENT,
+                                           ("x_rmse_cm", "y_rmse_cm"))
+        section("eval_cli")
+        out["loader"] = push_loader_pass(cache, synthetic)
+        section("loader")
+    others = push_other_classes(push_models, fused_step, pf_kernels, pf_module, device)
+    out["other_classes"] = others["readings"]
+    section("other_classes")
+    out["section_s"] = section_s
+    out["wall_s"] = time.perf_counter() - start
+    out["tf32"] = False
+    emit(out)
+    return {"launches": {"b1": loops["launches"]["b1"], "b3": loops["launches"]["b3"],
+                         "b2f": train["launches"]["b2f"], "b2b": train["launches"]["b2b"],
+                         "cli": cli["launches"], "other_classes_b1": others["b1_launches"]},
+            "times": times}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3749,6 +4325,8 @@ def main(argv=None) -> int:
     parser.add_argument("--yardstick", metavar="DIR",
                         help="also time B1, B4, B2f and B2b against the wrappers and kernels "
                              "of the checkout at DIR, in turns")
+    parser.add_argument("--phase", choices=["push"],
+                        help="build the kernels and run this phase alone")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3785,6 +4363,13 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "built": built, "build_s": build_s,
           "tf32_matmul": False, "tf32_cudnn": False})
+    if opts.phase == "push":
+        phase_push(fused_step, pf_kernels, pf_estimate, pf_module, device, None)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     b1_check = phase_b1(pf_kernels, device)
     b45_check = phase_b45(pf_kernels, device)
@@ -3822,6 +4407,9 @@ def main(argv=None) -> int:
     serving_stack = phase_serving_stack(door_models, fused_step, pf_kernels, pf_module,
                                         device, serving_cli)
     phase_s["serving_stack"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    push = phase_push(fused_step, pf_kernels, pf_estimate, pf_module, device, serving["rates"])
+    phase_s["push"] = time.perf_counter() - t0
     emit({"phase": "train_cli_phases_wall_s", **phase_s})
     times = phase_times(main_path["model"], pf_kernels, device)
     if old is not None:
@@ -3846,6 +4434,8 @@ def main(argv=None) -> int:
         "eval_pipeline_launches": eval_pipeline["b1_launches"],
         "train_cli_launches": train_cli["launches"]["b1"],
         "serving_stack_launches": serving_stack["b1"],
+        "push_launches": push["launches"]["b1"],
+        "push_cli_launches": push["launches"]["cli"]["b1"],
         "max_abs_err": b1_check["max_abs_err_est"],
         "max_abs_err_est": b1_check["max_abs_err_est"],
         "index_mismatch_non_tie": b1_check["index_mismatch_non_tie"],
@@ -3862,6 +4452,8 @@ def main(argv=None) -> int:
         "replaces": f"multimodalfilter_tpu/ops/pallas_pf.py:{line}",
         "launches": train_path["launches"][key],
         "train_cli_launches": train_cli["launches"][key],
+        "push_launches": push["launches"][key],
+        "push_cli_launches": push["launches"]["cli"][key],
         "max_abs_err": b2_check[part],
         "shape": [TRAIN_B, TRAIN_M, 3],
         "ms": b2_times[f"{key}_{TRAIN_B}x{TRAIN_M}x3"]["ms"],
@@ -3877,6 +4469,7 @@ def main(argv=None) -> int:
         "launches": serving["launches"]["b3"],
         "eval_pipeline_launches": eval_pipeline["b3_launches"],
         "serving_stack_launches": serving_stack["b3"],
+        "push_launches": push["launches"]["b3"],
         "max_abs_err": b3_check["max_abs_err_est"],
         "shape": [T, N, M, 3, 2],
         **{k: new_times["b3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

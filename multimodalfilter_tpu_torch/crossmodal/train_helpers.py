@@ -1,6 +1,6 @@
 """Training helpers (port of ``crossmodal/train_helpers.py``): module-global
 configuration (``configure(buddy=..., trajectories=...)``) and the
-curriculum primitives of the door filters, with the JAX package's
+curriculum primitives of the door and push filters, with the JAX package's
 signatures and defaults."""
 
 from __future__ import annotations

@@ -38,8 +38,8 @@ Task = DoorTask
 REPO_CACHE_DIR = str(Path(__file__).resolve().parents[3] / ".cache")
 
 
-def _parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def _parser(description: Optional[str] = None) -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=description or __doc__.split("\n\n")[0])
     parser.add_argument("--experiment-name", type=str, required=True)
     parser.add_argument("--checkpoint-label", type=str, default=None)
     parser.add_argument("--save", action="store_true",
@@ -83,7 +83,13 @@ def _profiled(profile_dir: Optional[str], fn):
 def main(argv=None, *, cache_dir: Optional[str] = None) -> Dict[str, float]:
     """Run the eval CLI on `argv`; returns the stats. `cache_dir` replaces
     the repo's ``.cache/`` as the dataset cache."""
-    args = _parser().parse_args(argv)
+    return run(Task, argv, cache_dir=cache_dir)
+
+
+def run(task, argv=None, *, cache_dir: Optional[str] = None,
+        description: Optional[str] = None) -> Dict[str, float]:
+    """The eval CLI of `task` (the door and push CLIs share it)."""
+    args = _parser(description).parse_args(argv)
     meshes_from_args(args)
     apply_serving_arg(args)
     os.environ["MMF_TPU_EVAL_BATCH_REPEATS"] = "1" if args.batched_repeats else "0"
@@ -94,11 +100,11 @@ def main(argv=None, *, cache_dir: Optional[str] = None) -> Dict[str, float]:
     model_type = buddy.metadata["model_type"]
     dataset_args = buddy.metadata["dataset_args"]
 
-    filter_model = Task.model_types[model_type](device=args.device)
+    filter_model = task.model_types[model_type](device=args.device)
     buddy.attach_model(filter_model)
     buddy.load_checkpoint(label=args.checkpoint_label)
 
-    eval_helpers.configure(buddy=buddy, task=Task, dataset_args=dataset_args)
+    eval_helpers.configure(buddy=buddy, task=task, dataset_args=dataset_args)
     results = _profiled(args.profile_dir, lambda: eval_helpers.run_eval_stats(
         measurement_initialize=args.measurement_init))
 

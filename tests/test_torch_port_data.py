@@ -145,9 +145,24 @@ def test_without_h5py_the_loader_raises(both_caches, tmp_path, monkeypatch, cach
         tdoor_task.DoorTask.get_eval_trajectories(**CLEAN)
 
 
-def test_push_synthesis_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        synthetic.synthesize_named_dataset("gentle_push_10.hdf5", str(tmp_path / "p"))
+@pytest.mark.parametrize("name", ["gentle_push_10.hdf5", "kloss_val.hdf5"])
+def test_push_synthesis_writes_the_jax_writers_file(tmp_path, monkeypatch, name):
+    """The push names, refused before the push task was ported, synthesise
+    what the JAX package's synthesize_named_dataset writes for them (the
+    same name-hash seed in one process); an unknown name still raises."""
+    _small_synthesis(monkeypatch)
+    synthetic.synthesize_named_dataset(name, str(tmp_path / "port.hdf5"))
+    jsynthetic.synthesize_named_dataset(name, str(tmp_path / "jax.hdf5"))
+    with JaxTrajectoriesFile(str(tmp_path / "jax.hdf5")) as fj, \
+            JaxTrajectoriesFile(str(tmp_path / "port.hdf5")) as fp:
+        jax_raw, port_raw = list(fj), list(fp)
+    assert len(jax_raw) == len(port_raw) == 2
+    for a, b in zip(jax_raw, port_raw):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    with pytest.raises(ValueError, match="Unknown dataset name"):
+        synthetic.synthesize_named_dataset("no_such_set.hdf5", str(tmp_path / "x"))
 
 
 @pytest.mark.parametrize("kwargs", [

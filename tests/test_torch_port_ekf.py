@@ -92,7 +92,7 @@ def test_virtual_sensor_net_matches_flax(noise_r, modalities):
     _close(ttril, tril, NET_ATOL)
 
 
-def test_virtual_sensor_net_refuses_the_push_encoder():
+def test_push_virtual_sensor_net_matches_flax():
     """The push task's encoder (the spanning-average-pool variant), once
     refused, is ported: the push virtual sensor (state 2) matches flax."""
     obs = _obs(5)

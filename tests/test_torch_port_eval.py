@@ -168,9 +168,24 @@ def test_metric_math_matches_jax(t, monkeypatch):
             == jmetrics.metric_results(raw, 1.0, 2.0, verbose=False))
 
 
-def test_metric_math_refuses_the_push_task(monkeypatch):
-    monkeypatch.setattr(tstate, "task", type("PushTask", (), {}))
-    with pytest.raises(NotImplementedError, match="A11"):
+def test_metric_math_of_the_push_task_matches_jax(monkeypatch, capsys):
+    """The push branch, refused before the push task was ported: the JAX
+    package's keys and values (x and y RMSE in cm from the MuJoCo
+    stddevs) and its printout; a task of neither kind raises."""
+    from crossmodal.tasks import PushTask as JaxPushTask
+    from multimodalfilter_tpu_torch.crossmodal.tasks import PushTask
+
+    monkeypatch.setattr(jstate, "task", JaxPushTask)
+    monkeypatch.setattr(tstate, "task", PushTask)
+    raw = np.random.default_rng(2).uniform(size=2)
+    want = jmetrics.metric_results(raw, 1.0, 2.0)
+    jax_out = capsys.readouterr().out
+    assert tmetrics.metric_results(raw, 1.0, 2.0) == want
+    assert capsys.readouterr().out == jax_out
+    assert set(want) == {"raw_rmse", "x_rmse_cm", "y_rmse_cm", "filter_steps_per_sec",
+                         "filter_steps_per_sec_e2e"}
+    monkeypatch.setattr(tstate, "task", type("OtherTask", (), {}))
+    with pytest.raises(ValueError, match="unknown task"):
         tmetrics.metric_results(np.ones(2), 1.0, 1.0)
 
 
