@@ -56,7 +56,22 @@ through its kernels, and times them:
   trained RMSE in cm below the untrained one), ``eval_push`` in fp32 and
   with ``--serving``, the nine other push classes card against CPU at N=16,
   T=20, one loader pass of the gentle_push and kloss sets, and B1, B2f, B2b
-  and B3 timed at D=2.
+  and B3 timed at D=2;
+- the rest of the surface (``surface``): B1 and B3 through their
+  ``torch.library`` custom ops (``torch.ops.mmf_torch.*``) bitwise against
+  the direct launch and within the limits against their plain versions, with
+  the host µs of a call each way; serving bundles
+  (``experiments/export.py``) of the crossmodal PF on the fused route (N=16,
+  T=100, M=300: one B3 launch a loop) and on the per-step path (T=20: 20 B1
+  launches a loop) and of the crossmodal KF, each replaying the live model
+  bitwise, with export s, bundle MB and filter-steps/s of bundle and live
+  model; the fused bundle run in a fresh process that imports no model
+  code; a reference-structured checkpoint imported through
+  ``Buddy.load_torch_checkpoint`` card against CPU; ``systematic_resample``
+  and the likelihood grid of ``vis_pf_likelihoods`` card against CPU;
+  ``eval_dynamics`` on a checkpoint the phase writes; ``profile_trace``
+  around a loop (device events in the trace); and ``validate_curricula`` on
+  PushLSTMFilter (its train and eval CLIs in subprocesses).
 
 B3 is also held against its plain version step by step (T=100 launches of
 one step, each from the plain run's belief), over a whole loop, and at other
@@ -76,9 +91,9 @@ device and host-paced times beside the floor (one copy kernel over the same
 particles) and the host cost of a call's parts; B2f's and B2b's the same at
 B=32 and B=512, and their device times with 1, 2, 4 and 8 rows a block.
 
-    python3 chip_smoke.py --phase push
+    python3 chip_smoke.py --phase push      (or --phase surface)
 
-builds the kernels and runs the push phase alone.
+builds the kernels and runs that phase alone.
 
     python3 chip_smoke.py --yardstick DIR
 
@@ -246,6 +261,21 @@ def cuda_ms(fn, repeats: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int) -> float:
+    """Mean host µs of one call of fn() over `calls` back-to-back calls (the
+    device drained before and after; perf_counter_ns)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
 
 
 def loop_ms(run, repeats: int) -> tuple:
@@ -605,17 +635,7 @@ def launch_parts(pf_kernels, args, calls: int = 10000) -> dict:
         "pointers": lambda: [t.data_ptr() for t in (lw, ll, uniforms, particles, *outs)],
         "c_call": lambda: entry(*ptrs, n, m, d, raw),
     }
-    out = {}
-    for name, fn in parts.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter_ns()
-        for _ in range(calls):
-            fn()
-        t1 = time.perf_counter_ns()
-        torch.cuda.synchronize()
-        out[name] = (t1 - t0) / calls / 1e3
-    return out
+    return {name: host_us(fn, calls) for name, fn in parts.items()}
 
 
 def phase_profile(model, pf_kernels, device) -> None:
@@ -1045,17 +1065,7 @@ def b2_launch_parts(pf_estimate, args, calls: int = 10000) -> dict:
         "pointers": (lambda: [t.data_ptr() for t in (lw, ll, particles, *outs)], calls),
         "c_call": (lambda: entry(*ptrs, n, m, d, *extra, raw), calls),
     }
-    out = {}
-    for name, (fn, count) in parts.items():
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter_ns()
-        for _ in range(count):
-            fn()
-        t1 = time.perf_counter_ns()
-        torch.cuda.synchronize()
-        out[name] = (t1 - t0) / count / 1e3
-    return out
+    return {name: host_us(fn, count) for name, (fn, count) in parts.items()}
 
 
 def b2_rows_sweep(pf_estimate, device) -> dict:
@@ -4316,6 +4326,524 @@ def phase_push(fused_step, pf_kernels, pf_estimate, pf_module, device, door_rate
             "times": times}
 
 
+# The surface phase: the serving export with B1 and B3 as custom ops,
+# the reference-checkpoint import, systematic resampling, the likelihood grid,
+# eval_dynamics, profile_trace and validate_curricula on the card.
+SURFACE_PER_STEP_T = 20  # the per-step bundle's loop (T B1 launches a loop)
+SURFACE_KF_T = 3  # the KF bundle's loop: its traced program grows ~430 nodes a step
+# validate_curricula's class: a push curriculum the card had not run. No
+# push KF curriculum fits its minute (PushKalmanFilter's, the plainest, ran
+# past 120 s on the 8 + 8 trajectories: PERF.md), so the cheapest push class.
+SURFACE_CURRICULUM_CLASS = "PushLSTMFilter"
+# Its curriculum's data: the push task's 8 + 8 synthetic trajectories of
+# 100-124 steps (the push phase's; fewer leave fewer windows than a batch).
+SURFACE_CURRICULUM_ENV = {"synth_traj": 8, "synth_t": 100, "timeout": 60.0}
+GRID_RTOL = 1e-4  # the likelihood grid, card against CPU: fp32 convs and trunks
+
+
+def host_us_each(fn, calls: int) -> float:
+    """Median host µs of one call of fn(), the device drained before each
+    (for a call whose kernel runs for milliseconds)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append((time.perf_counter_ns() - t0) / 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def surface_ops(custom_ops, door_models, fused_step, pf_kernels, device) -> dict:
+    """B1 and B3 through torch.ops.mmf_torch.*: bitwise the direct launch,
+    and the direct launch within the existing limits of its plain version
+    (B1 as phase_b1 holds it, B3 over a whole T=100 loop as b3_whole_loop
+    does); the host µs of a call each way. The op's and the filter's choice
+    between them (custom_ops.tracing) are timed too."""
+    import torch
+
+    args = b1_inputs(N, M, 3, device, seed=90)
+    op = torch.ops.mmf_torch.pf_tail(*args, 1.0)
+    direct = pf_kernels.pf_update_and_resample(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(op, direct)), "B1 op != direct launch")
+    rp, rlw, rest = pf_kernels.pf_update_and_resample_reference(*args)
+    _, cdf = pf_kernels.resample_cdf(args[0], args[1])
+    tie = pf_kernels.tie_gaps(cdf, args[3]) <= TIE
+    b1 = {"index_mismatch_non_tie": int(((op[0] != rp).any(dim=-1) & ~tie).sum()),
+          "max_abs_err_est": float((op[2] - rest).abs().max()),
+          "max_abs_err_lw": float((op[1] - rlw).abs().max())}
+    check(b1["index_mismatch_non_tie"] == 0 and b1["max_abs_err_est"] <= EST_ATOL_KERNEL
+          and b1["max_abs_err_lw"] == 0.0, f"B1 through the op against plain: {b1}")
+    t0 = time.perf_counter()
+    b1["host_us"] = {
+        "direct": host_us(lambda: pf_kernels.pf_update_and_resample(*args), 5000),
+        "op": host_us(lambda: torch.ops.mmf_torch.pf_tail(*args, 1.0), 5000),
+        "op_def": host_us(lambda: custom_ops.pf_tail(*args, alpha=1.0), 5000),
+        "tracing_check": host_us(custom_ops.tracing, 50000)}
+    b1["host_us"]["direct_again"] = host_us(
+        lambda: pf_kernels.pf_update_and_resample(*args), 5000)
+    print(f"surface: B1 host times {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+          flush=True)
+
+    model = with_env({"MMF_TPU_FUSED_STEP": "1"},
+                     lambda: door_models.DoorCrossmodalParticleFilter(device=device))
+    numpy_weights(model.params, SERVING_WEIGHTS_SEED)
+    _, _, belief, _, uniforms, ops = door_sequences(model.definition, T, N, M, device, seed=91)
+    with torch.no_grad():
+        ob, oest = custom_ops.fused_forward_op(ops, belief, uniforms)
+        db, dest = fused_step.fused_forward_kernel(ops, belief, uniforms)
+        torch.cuda.synchronize()
+    check(torch.equal(oest, dest) and all(torch.equal(a, b) for a, b in zip(ob, db)),
+          "B3 op != direct launch")
+    t0 = time.perf_counter()
+    b3 = b3_whole_loop(fused_step, pf_kernels, ops, belief, uniforms)
+    print(f"surface: B3 against plain {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+          flush=True)
+    b3["host_us"] = {
+        "direct": host_us_each(lambda: fused_step.fused_forward(ops, belief, uniforms), 30),
+        "op": host_us_each(lambda: custom_ops.fused_forward_op(ops, belief, uniforms), 30)}
+    return {"b1": b1, "b3": b3}
+
+
+def bundle_size_mb(path) -> float:
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
+
+
+def export_bundle(export, model, t, work, name) -> dict:
+    """Export `model` at N=16 over `t` steps into `work`/`name`: its inputs,
+    path, export s and bundle MB."""
+    import os
+
+    import torch
+
+    obs, ctrl = sequences(t, N, seed=92)
+    mean, cov = initial_state(N, model.state_dim)
+    path = os.path.join(work, name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export.export_serving_bundle(model, path, observations=obs, controls=ctrl)
+    export_s = time.perf_counter() - t0
+    with open(os.path.join(path, "meta.json")) as f:
+        fused = json.load(f)["fused_route"]
+    print(f"surface: exported {name} in {export_s:.1f} s", file=sys.stderr, flush=True)
+    return {"name": name, "model": model, "T": t, "N": N, "export_s": export_s,
+            "bundle_mb": bundle_size_mb(path), "fused_route": fused, "path": path,
+            "inputs": (obs, ctrl, mean, cov)}
+
+
+def bundle_vs_live(export, record, counters, repeats=3) -> dict:
+    """The bundle of `record` (export_bundle) loaded and replaying its live
+    model: the same seed, two loops, bitwise; the kernel launches of one
+    bundle loop (counters set to 0 just before it); load s and
+    filter-steps/s of bundle and live model."""
+    import torch
+
+    model, t, name = record["model"], record["T"], record["name"]
+    obs, ctrl, mean, cov = record["inputs"]
+    t0 = time.perf_counter()
+    served = export.load_serving_bundle(record["path"], seed=0)
+    load_s = time.perf_counter() - t0
+    model.generator.manual_seed(0)
+    model.initialize_beliefs(mean=mean, covariance=cov)
+    served.initialize_beliefs(mean=mean, covariance=cov)
+    want = [model.forward_loop(observations=obs, controls=ctrl)]
+    for c in counters.values():
+        c.launches = 0
+    got = [served.forward_loop(observations=obs, controls=ctrl)]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    want.append(model.forward_loop(observations=obs, controls=ctrl))
+    got.append(served.forward_loop(observations=obs, controls=ctrl))
+    check(all(torch.equal(a, b) for a, b in zip(want, got)),
+          f"{name}: the bundle does not replay the live model bitwise")
+    check(all(bool(torch.isfinite(x).all()) and tuple(x.shape) == (t, N, model.state_dim)
+              for x in got), f"{name}: estimates not finite or of the wrong shape")
+    rates = {}
+    for label, run in (("bundle", lambda: served.forward_loop(observations=obs, controls=ctrl)),
+                       ("live", lambda: model.forward_loop(observations=obs, controls=ctrl))):
+        run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(repeats):
+            run()
+        torch.cuda.synchronize()
+        rates[label] = repeats * t * N / (time.perf_counter() - t1)
+    record["estimates"] = got[0]
+    return {k: record[k] for k in ("T", "N", "export_s", "bundle_mb", "fused_route")} | {
+        "load_s": load_s, "launches_one_loop": launches, "filter_steps_per_s": rates}
+
+
+SUBPROCESS_LOAD = """
+import sys
+import numpy as np
+import torch
+from multimodalfilter_tpu_torch.experiments.export import load_serving_bundle
+torch.backends.cuda.matmul.allow_tf32 = False  # as in this script: fp32 means fp32
+torch.backends.cudnn.allow_tf32 = False
+x = np.load(sys.argv[2])
+served = load_serving_bundle(sys.argv[1], seed=0)
+served.initialize_beliefs(mean=x["mean"], covariance=x["cov"])
+obs = {k: x[k] for k in ("image", "gripper_pos", "gripper_sensors")}
+np.save(sys.argv[3], served.forward_loop(observations=obs, controls=x["ctrl"]).cpu().numpy())
+print(sorted(m for m in sys.modules if m.startswith("multimodalfilter_tpu_torch.")))
+"""
+
+
+def start_bundle_subprocess(record, work):
+    """Start a fresh process that loads the bundle of `record` and runs its
+    loop from the same seed and inputs, importing only the export module
+    (and through it the ops and types); collect it with
+    bundle_from_subprocess."""
+    import os
+
+    import numpy as np
+
+    obs, ctrl, mean, cov = record["inputs"]
+    inputs, out = os.path.join(work, "inputs.npz"), os.path.join(work, "estimates.npy")
+    np.savez(inputs, mean=mean, cov=cov, ctrl=ctrl, **obs)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(work, f"subprocess.{k}"), "w+") for k in ("out", "err")]
+    proc = subprocess.Popen([sys.executable, "-c", SUBPROCESS_LOAD, record["path"], inputs,
+                             out], stdout=logs[0], stderr=logs[1], text=True, cwd=repo,
+                            env={**os.environ, "PYTHONPATH": repo})
+    return proc, out, logs, time.perf_counter()
+
+
+def bundle_from_subprocess(started, record) -> dict:
+    """The subprocess's estimates equal this process's bundle's (record's
+    first loop), and its sys.modules holds no model code."""
+    import numpy as np
+
+    proc, out, logs, t0 = started
+    proc.wait(timeout=300)
+    wall = time.perf_counter() - t0
+    stdout, stderr = (f.seek(0) or f.read() for f in logs)
+    for f in logs:
+        f.close()
+    check(proc.returncode == 0, f"bundle in a subprocess: {stderr[-3000:]}")
+    loaded = eval(stdout.strip().splitlines()[-1])
+    model_code = [m for m in loaded if m.split(".")[1] in ("crossmodal", "filtering", "models")]
+    check(not model_code, f"the loading process imported model code: {model_code}")
+    same = bool((np.load(out) == record["estimates"].cpu().numpy()).all())
+    check(same, "the bundle in a subprocess gave other estimates")
+    return {"wall_s": wall, "modules": loaded, "estimates_equal": same}
+
+
+def reference_pf_state_dict(seed: int) -> dict:
+    """A state dict with the reference's module structure for the door
+    crossmodal PF (nn.Sequential stacks at the indices of the reference's
+    dynamics.py:26-34, pf.py:43-59, crossmodal_pf.py:64-72; fannypack
+    resblocks' block1/block2), weights from numpy (numpy_weights)."""
+    from torch import nn
+
+    units = 64
+
+    def res(u):
+        block = nn.Module()
+        block.block1, block.block2 = nn.Linear(u, u), nn.Linear(u, u)
+        return block
+
+    def conv_res(c):
+        block = nn.Module()
+        block.block1 = nn.Conv2d(c, c, 3, padding=1)
+        block.block2 = nn.Conv2d(c, c, 3, padding=1)
+        return block
+
+    def mlp(d):
+        return nn.Sequential(nn.Linear(d, units), nn.ReLU(), res(units))
+
+    def encoders(module, modalities):
+        if "image" in modalities:
+            module.observation_image_layers = nn.Sequential(
+                nn.Conv2d(1, 32, 5, padding=2), nn.ReLU(), conv_res(32),
+                nn.Conv2d(32, 16, 3, padding=1), nn.ReLU(), nn.Conv2d(16, 8, 3, padding=1),
+                nn.Flatten(), nn.Linear(8192, units), nn.ReLU(), res(units))
+        if "pos" in modalities:
+            module.observation_pos_layers = mlp(3)
+        if "sensors" in modalities:
+            module.observation_sensors_layers = mlp(7)
+        return module
+
+    root = nn.Module()
+    root.dynamics_model = nn.Module()
+    root.dynamics_model.state_layers, root.dynamics_model.control_layers = mlp(3), mlp(7)
+    root.dynamics_model.shared_layers = nn.Sequential(
+        nn.Linear(2 * units, units), res(units), res(units), res(units), nn.Linear(units, 4))
+    root.measurement_model = nn.Module()
+    root.measurement_model.measurement_models = nn.ModuleList()
+    for mods in (("image",), ("pos", "sensors")):
+        mm = encoders(nn.Module(), mods)
+        mm.state_layers = mlp(3)
+        mm.shared_layers = nn.Sequential(nn.Linear(units * (len(mods) + 1), units), nn.ReLU(),
+                                         res(units), res(units), nn.Linear(units, 1))
+        root.measurement_model.measurement_models.append(mm)
+    gate = encoders(nn.Module(), ("image", "pos", "sensors"))
+    gate.fusion_layers = nn.Sequential(nn.Linear(3 * units, units), nn.ReLU(), res(units),
+                                       res(units), res(units), nn.Linear(units, 2))
+    root.measurement_model.crossmodal_weight_model = gate
+    numpy_weights(root, seed)
+    return root.state_dict()
+
+
+def surface_import(door_models, device, work) -> dict:
+    """A reference-structured crossmodal-PF checkpoint imported through
+    Buddy.load_torch_checkpoint into the model on the card and on the CPU:
+    every parameter filled, and the dynamics, the gate and the fused
+    log-likelihoods card against CPU within LOOP_ATOL of their scale."""
+    import os
+
+    import torch
+
+    from multimodalfilter_tpu_torch.experiments import Buddy
+
+    path = os.path.join(work, "reference.ckpt")
+    torch.save({"state_dict": reference_pf_state_dict(SERVING_WEIGHTS_SEED)}, path)
+    models = []
+    for dev in (device, "cpu"):
+        model = door_models.DoorCrossmodalParticleFilter(device=dev).eval()
+        Buddy("import", model, checkpoint_dir=os.path.join(work, "c"),
+              metadata_dir=os.path.join(work, "m"), log_dir=os.path.join(work, "l"),
+              verbose=False).load_torch_checkpoint(path)
+        models.append(model)
+    gpu, cpu = models
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(gpu.params.state_dict().values(),
+                                                       cpu.params.state_dict().values())),
+          "the import put other tensors on the card")
+    obs, ctrl = sequences(1, N, seed=93)
+    g = torch.Generator().manual_seed(93)
+    particles = 0.3 * torch.randn(N, M, 3, generator=g)
+    out = {}
+    with torch.no_grad():
+        for name, fn in (
+                ("dynamics", lambda m, dev: m.definition.dynamics_model.apply(
+                    particles[:, 0].to(dev), torch.from_numpy(ctrl[0]).to(dev))[0]),
+                ("gate", lambda m, dev: m.definition.measurement_model.crossmodal_weight_model
+                 .log_weights({k: torch.from_numpy(v[0]).to(dev) for k, v in obs.items()})),
+                ("log_likelihoods", lambda m, dev: m.definition.measurement_model.log_likelihoods(
+                    particles.to(dev), {k: torch.from_numpy(v[0]).to(dev)
+                                        for k, v in obs.items()}))):
+            a, b = fn(gpu, device).cpu(), fn(cpu, "cpu")
+            scale = max(1.0, float(b.abs().max()))
+            out[name] = {"max_abs_err": float((a - b).abs().max()), "scale": scale}
+            check(out[name]["max_abs_err"] <= LOOP_ATOL * scale, f"import {name}: {out[name]}")
+    return out
+
+
+def surface_systematic(device) -> dict:
+    """systematic_resample on the card against the CPU at N=16, M=300 from
+    the same u0: the indices equal where no position lies within TIE of a
+    CDF entry."""
+    import torch
+
+    from multimodalfilter_tpu_torch.ops import pf_kernels
+    from multimodalfilter_tpu_torch.ops.resampling import systematic_resample
+
+    g = torch.Generator().manual_seed(94)
+    particles = torch.randn(N, M, 3, generator=g)
+    particles[..., 0] = torch.arange(M, dtype=torch.float32)
+    log_weights = torch.log_softmax(3 * torch.randn(N, M, generator=g), dim=1)
+    u0 = torch.rand(N, 1, generator=g)
+    card = systematic_resample(particles.to(device), log_weights.to(device), u0=u0.to(device))
+    cpu = systematic_resample(particles, log_weights, u0=u0)
+    positions = (u0 + torch.arange(M)[None]) / M
+    cdf = torch.cumsum(torch.exp(log_weights), dim=1)
+    off_tie = pf_kernels.tie_gaps(cdf / cdf[:, -1:], positions) > TIE
+    mismatch = int(((card[0][..., 0].cpu() != cpu[0][..., 0]) & off_tie).sum())
+    check(mismatch == 0, f"systematic_resample: {mismatch} indices differ off a tie")
+    check(torch.equal(card[1].cpu(), cpu[1]), "systematic_resample: log-weights differ")
+    return {"index_mismatch_non_tie": mismatch, "tie_positions": int((~off_tie).sum())}
+
+
+def surface_grid(door_models, device) -> dict:
+    """vis_pf_likelihoods.likelihood_grid (41 x 41 states) on the card
+    against the CPU within GRID_RTOL of its scale; the rendering raises
+    ImportError where matplotlib is missing."""
+    import numpy as np
+    import torch
+
+    from multimodalfilter_tpu_torch.scripts.door_task import vis_pf_likelihoods
+    from multimodalfilter_tpu_torch.types import Trajectory
+
+    models = []
+    for dev in (device, "cpu"):
+        model = door_models.DoorCrossmodalParticleFilter(device=dev)
+        numpy_weights(model.params, SERVING_WEIGHTS_SEED)
+        models.append(model.eval())
+    obs, ctrl = sequences(60, 1, seed=95)
+    states = np.random.default_rng(95).normal(size=(60, 3)).astype(np.float32)
+    traj = Trajectory(states, {k: v[:, 0] for k, v in obs.items()}, ctrl[:, 0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = vis_pf_likelihoods.likelihood_grid(models[0], traj)
+    grid_s = time.perf_counter() - t0
+    cpu = vis_pf_likelihoods.likelihood_grid(models[1], traj)
+    out = {"grid_s": grid_s}
+    for key in ("log_likelihoods", "fused"):
+        scale = max(1.0, float(np.abs(cpu[key]).max()))
+        out[key] = {"max_abs_err": float(np.abs(card[key] - cpu[key]).max()), "scale": scale}
+        check(out[key]["max_abs_err"] <= GRID_RTOL * scale, f"likelihood grid {key}: {out}")
+    try:
+        import matplotlib  # noqa: F401
+
+        out["render"] = "matplotlib present"
+    except ImportError:
+        try:
+            vis_pf_likelihoods.render(card, "unused.png")
+        except ImportError as exc:
+            check("matplotlib" in str(exc), f"render: {exc}")
+            out["render"] = "ImportError naming matplotlib"
+    return out
+
+
+def surface_eval_dynamics(door_models, device) -> dict:
+    """eval_dynamics on a checkpoint this phase writes (the door eval set
+    synthesised in memory): finite RMSEs and the JAX CLI's keys."""
+    import numpy as np
+
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.scripts.door_task import eval_dynamics
+
+    with cli_workspace(env=EVAL_ENV, files=EVAL_FILES) as work:
+        model = door_models.DoorCrossmodalParticleFilter(device=device)
+        numpy_weights(model.params, EVAL_WEIGHTS_SEED)
+        buddy = Buddy("surface_eval_dynamics", model, verbose=False)
+        buddy.set_metadata({"model_type": "DoorCrossmodalParticleFilter",
+                            "dataset_args": EVAL_DATASET_ARGS})
+        buddy.save_checkpoint(label="final")
+        t0 = time.perf_counter()
+        results = eval_dynamics.main(["--experiment-name", "surface_eval_dynamics",
+                                      "--device", str(device)], cache_dir=work.cache_dir)
+        wall = time.perf_counter() - t0
+    check(np.isfinite(results["raw_rmse"]).all(), f"eval_dynamics: {results}")
+    check({"theta_rmse_deg", "x_rmse_cm", "y_rmse_cm"} <= set(results),
+          f"eval_dynamics keys: {sorted(results)}")
+    return {"wall_s": wall, **{k: results[k] for k in ("theta_rmse_deg", "x_rmse_cm",
+                                                       "y_rmse_cm")}}
+
+
+def surface_profile(utils, model, device, work) -> dict:
+    """profile_trace around one forward_loop of `model` (N=16, T=20): the
+    Chrome trace it writes holds device (CUDA kernel) events."""
+    import os
+
+    import torch
+
+    obs, ctrl = sequences(SURFACE_PER_STEP_T, N, seed=96)
+    mean, cov = initial_state(N)
+    model.initialize_beliefs(mean=mean, covariance=cov)
+    trace_dir = os.path.join(work, "trace")
+    with utils.profile_trace(trace_dir):
+        model.forward_loop(observations=obs, controls=ctrl)
+        torch.cuda.synchronize()
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    tails = sum(ROW_TAIL_KERNEL in e.get("name", "") for e in kernels)
+    check(len(kernels) > 0, "profile_trace: no device events in the trace")
+    check(tails == SURFACE_PER_STEP_T, f"profile_trace: {tails} B1 kernels in the trace")
+    return {"events": len(events), "kernel_events": len(kernels), "b1_kernel_events": tails}
+
+
+def surface_validate(work) -> dict:
+    """validate_curricula.run_one on SURFACE_CURRICULUM_CLASS on the card
+    (its train and eval CLIs in subprocesses, the sets synthesised in
+    memory), within SURFACE_CURRICULUM_ENV's time limit: both parts succeed
+    and the RMSEs are finite."""
+    import math as _math
+    import os
+
+    from multimodalfilter_tpu_torch.scripts import validate_curricula
+
+    rec = validate_curricula.run_one(SURFACE_CURRICULUM_CLASS,
+                                     out=os.path.join(work, "lines.jsonl"), device="cuda",
+                                     workdir=work, **SURFACE_CURRICULUM_ENV)
+    check(rec["ok"], f"validate_curricula {SURFACE_CURRICULUM_CLASS}: {rec}")
+    check(all(_math.isfinite(v) for v in rec["rmse"].values()), f"validate: {rec}")
+    return rec
+
+
+def phase_surface(door_models, fused_step, pf_kernels, device) -> dict:
+    """The rest of the surface on the card (the sections above), each
+    section's wall s beside it."""
+    import tempfile as _tempfile
+
+    from multimodalfilter_tpu_torch import utils
+    from multimodalfilter_tpu_torch.experiments import export
+    from multimodalfilter_tpu_torch.ops import custom_ops
+
+    out = {"phase": "surface", "units": 64, "N": N, "M": M,
+           "weights_seed": SERVING_WEIGHTS_SEED, "limits": {
+               "est_atol_kernel": EST_ATOL_KERNEL, "b3_loop_atol": B3_LOOP_ATOL,
+               "loop_atol": LOOP_ATOL, "grid_rtol": GRID_RTOL, "tie": TIE}}
+    section_s, t_section = {}, [time.perf_counter()]
+    start = t_section[0]
+
+    def section(name):
+        now = time.perf_counter()
+        section_s[name] = now - t_section[0]
+        t_section[0] = now
+        print(f"surface: {name} {section_s[name]:.1f} s", file=sys.stderr, flush=True)
+
+    counters = {"b1": pf_kernels.launch_b1, "b3": fused_step.fused_forward_kernel}
+    out["ops"] = surface_ops(custom_ops, door_models, fused_step, pf_kernels, device)
+    section("ops")
+    with _tempfile.TemporaryDirectory(prefix="chip_smoke_surface_") as work:
+        fused_model = with_env({"MMF_TPU_FUSED_STEP": "1"},
+                               lambda: door_models.DoorCrossmodalParticleFilter(device=device))
+        step_model = door_models.DoorCrossmodalParticleFilter(device=device)
+        kf_model = door_models.DoorCrossmodalKalmanFilter(device=device)
+        for model in (fused_model, step_model, kf_model):
+            numpy_weights(model.params, SERVING_WEIGHTS_SEED if model is not kf_model
+                          else KF_WEIGHTS_SEED)
+            model.eval()
+        # The exports first, the fused bundle's run in a fresh process beside
+        # the other two (it is host work that the exports' would wait for);
+        # the replays and their timings after it has ended.
+        records = [export_bundle(export, fused_model, T, work, "fused")]
+        started = start_bundle_subprocess(records[0], work)
+        records += [export_bundle(export, step_model, SURFACE_PER_STEP_T, work, "per_step"),
+                    export_bundle(export, kf_model, SURFACE_KF_T, work, "kf")]
+        section("exports")
+        started[0].wait(timeout=300)
+        section("subprocess_wait")
+        bundles = {r["name"]: bundle_vs_live(export, r, counters) for r in records}
+        out["subprocess"] = bundle_from_subprocess(started, records[0])
+        check(bundles["fused"]["fused_route"] is True
+              and bundles["fused"]["launches_one_loop"] == {"b1": 0, "b3": 1},
+              f"fused bundle: {bundles['fused']['launches_one_loop']}")
+        check(bundles["per_step"]["launches_one_loop"] == {"b1": SURFACE_PER_STEP_T, "b3": 0},
+              f"per-step bundle: {bundles['per_step']['launches_one_loop']}")
+        check(bundles["kf"]["launches_one_loop"] == {"b1": 0, "b3": 0},
+              f"KF bundle: {bundles['kf']['launches_one_loop']}")
+        section("replays")
+        out["bundles"] = bundles
+        out["import"] = surface_import(door_models, device, work)
+        section("import")
+        out["systematic"] = surface_systematic(device)
+        section("systematic")
+        out["grid"] = surface_grid(door_models, device)
+        section("grid")
+        out["eval_dynamics"] = surface_eval_dynamics(door_models, device)
+        section("eval_dynamics")
+        out["profile_trace"] = surface_profile(utils, step_model, device, work)
+        section("profile_trace")
+        out["validate_curricula"] = surface_validate(work)
+        section("validate_curricula")
+    out["section_s"] = section_s
+    out["wall_s"] = time.perf_counter() - start
+    out["tf32"] = False
+    emit(out)
+    return {"b1_bundle_launches": out["bundles"]["per_step"]["launches_one_loop"]["b1"],
+            "b3_bundle_launches": out["bundles"]["fused"]["launches_one_loop"]["b3"],
+            "b1_host_us": out["ops"]["b1"]["host_us"], "b3_host_us": out["ops"]["b3"]["host_us"]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4325,7 +4853,7 @@ def main(argv=None) -> int:
     parser.add_argument("--yardstick", metavar="DIR",
                         help="also time B1, B4, B2f and B2b against the wrappers and kernels "
                              "of the checkout at DIR, in turns")
-    parser.add_argument("--phase", choices=["push"],
+    parser.add_argument("--phase", choices=["push", "surface"],
                         help="build the kernels and run this phase alone")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4363,8 +4891,11 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "built": built, "build_s": build_s,
           "tf32_matmul": False, "tf32_cudnn": False})
-    if opts.phase == "push":
-        phase_push(fused_step, pf_kernels, pf_estimate, pf_module, device, None)
+    if opts.phase is not None:
+        if opts.phase == "push":
+            phase_push(fused_step, pf_kernels, pf_estimate, pf_module, device, None)
+        else:
+            phase_surface(door_models, fused_step, pf_kernels, device)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -4410,6 +4941,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     push = phase_push(fused_step, pf_kernels, pf_estimate, pf_module, device, serving["rates"])
     phase_s["push"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    surface = phase_surface(door_models, fused_step, pf_kernels, device)
+    phase_s["surface"] = time.perf_counter() - t0
     emit({"phase": "train_cli_phases_wall_s", **phase_s})
     times = phase_times(main_path["model"], pf_kernels, device)
     if old is not None:
@@ -4436,6 +4970,9 @@ def main(argv=None) -> int:
         "serving_stack_launches": serving_stack["b1"],
         "push_launches": push["launches"]["b1"],
         "push_cli_launches": push["launches"]["cli"]["b1"],
+        "op": "mmf_torch::pf_tail",
+        "bundle_launches": surface["b1_bundle_launches"],
+        "host_us": surface["b1_host_us"],
         "max_abs_err": b1_check["max_abs_err_est"],
         "max_abs_err_est": b1_check["max_abs_err_est"],
         "index_mismatch_non_tie": b1_check["index_mismatch_non_tie"],
@@ -4470,6 +5007,9 @@ def main(argv=None) -> int:
         "eval_pipeline_launches": eval_pipeline["b3_launches"],
         "serving_stack_launches": serving_stack["b3"],
         "push_launches": push["launches"]["b3"],
+        "op": "mmf_torch::fused_forward",
+        "bundle_launches": surface["b3_bundle_launches"],
+        "host_us": surface["b3_host_us"],
         "max_abs_err": b3_check["max_abs_err_est"],
         "shape": [T, N, M, 3, 2],
         **{k: new_times["b3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",

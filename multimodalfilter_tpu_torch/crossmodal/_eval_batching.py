@@ -11,20 +11,12 @@ states stay numpy (the metrics are numpy).
 
 from __future__ import annotations
 
-from typing import List
-
 import numpy as np
 import torch
 
+from .. import native
 from ..data.augment import apply_image_blackout
 from . import _eval_state as S
-
-
-def _stack_axis1(arrays: List[np.ndarray], t_min: int) -> np.ndarray:
-    """np.stack([a[:t_min] for a in arrays], axis=1) of float32 arrays (the
-    numpy path of the JAX package's native.stack_axis1)."""
-    return np.stack([np.ascontiguousarray(a, dtype=np.float32)[:t_min] for a in arrays],
-                    axis=1)
 
 
 def _device():
@@ -51,10 +43,10 @@ def get_eval_batch(tile: int = 1):
             raise TypeError(f"eval trajectories are a {type(trajectories).__name__}")
 
         min_timesteps = min(s.shape[0] for s, o, c in trajectories)
-        states = _stack_axis1([s for s, o, c in trajectories], min_timesteps)
-        controls = _stack_axis1([c for s, o, c in trajectories], min_timesteps)
+        states = native.stack_axis1([s for s, o, c in trajectories], min_timesteps)
+        controls = native.stack_axis1([c for s, o, c in trajectories], min_timesteps)
         observations = {
-            k: _stack_axis1([o[k] for s, o, c in trajectories], min_timesteps)
+            k: native.stack_axis1([o[k] for s, o, c in trajectories], min_timesteps)
             for k in trajectories[0].observations.keys()
         }
         device = _device()

@@ -10,9 +10,9 @@
   - hardcoded z-score normalization constants, which the eval's
     de-normalization reuses.
 
-The JAX package runs the host steps through its ``native`` engine; the port
-runs their numpy fallbacks, the same float32 operations in the same order,
-so the loaded arrays are bitwise the JAX loader's.
+The host steps run through ``native`` (the JAX package's numpy
+expressions, the same float32 operations in the same order), so the loaded
+arrays are bitwise the JAX loader's.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from ... import native
 from ...data import cached_trajectories
 from ...types import Trajectory
 from ._task import Task
@@ -131,10 +132,7 @@ def make_controls(eef_positions: np.ndarray, contact: np.ndarray) -> np.ndarray:
 def _normalize(array: np.ndarray, mean_key: str, std_key: str) -> np.ndarray:
     mean = np.array(NORMALIZATION[mean_key], dtype=np.float32)
     std = np.array(NORMALIZATION[std_key], dtype=np.float32)
-    # The JAX package's native.normalize and its numpy fallback: float32
-    # (x - mean) / std elementwise, which is what its C path computes too.
-    src = np.ascontiguousarray(array, dtype=np.float32)
-    return ((src - mean) / std).astype(np.float32)
+    return native.normalize(array, mean, std)
 
 
 def _check_shape(name: str, key: str, shape, expected) -> None:
@@ -200,11 +198,8 @@ def _load_trajectories(
                 gripper_sensors[:] = 0
 
             # 64x64 -> 32x32 via stride-2 subsampling, then per-timestep
-            # blackout masking (the numpy fallbacks of the JAX package's
-            # native.subsample2 and native.apply_mask).
-            image = np.ascontiguousarray(
-                np.ascontiguousarray(raw["image"], dtype=np.float32)[:, ::2, ::2]
-            )
+            # blackout masking.
+            image = native.subsample2(raw["image"])
             _check_shape(name, "image", image.shape, (timesteps, 32, 32))
             mask = make_image_mask(
                 timesteps,
@@ -213,7 +208,7 @@ def _load_trajectories(
                 sequential_image_rate=sequential_image_rate,
                 rng=rng,
             )
-            image = image * mask.reshape(-1, 1, 1)
+            image = native.apply_mask(image, mask)
 
             # NOTE: the reference's observations["gripper_pos"] aliases the
             # raw eef_pos array, so --no_proprioception zeroes the controls

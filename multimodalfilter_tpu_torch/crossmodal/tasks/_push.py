@@ -11,9 +11,9 @@
   - a normalization table per source; the eval split is gentle_push_10 or
     the first 50 trajectories of kloss_val.
 
-As for the door loader, the JAX package's ``native`` normalisation and
-masking run here as their numpy fallbacks, the same float32 operations in
-the same order, so the loaded arrays are bitwise the JAX loader's.
+As for the door loader, the normalisation and masking run through
+``native``, the JAX package's numpy expressions, so the loaded arrays are
+bitwise the JAX loader's.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from ... import native
 from ...data import cached_trajectories
 from ...types import Trajectory
 from ._door import _check_shape, make_controls, make_image_mask
@@ -157,8 +158,7 @@ def _load_trajectories(
     def normalize(array, key):
         mean = np.array(norm[f"{key}_mean"], dtype=np.float32)
         std = np.array(norm[f"{key}_std"], dtype=np.float32)
-        src = np.ascontiguousarray(array, dtype=np.float32)
-        return ((src - mean) / std).astype(np.float32)
+        return native.normalize(array, mean, std)
 
     trajectories: List[Trajectory] = []
     for entry in input_files:
@@ -205,7 +205,7 @@ def _load_trajectories(
                 sequential_image_rate=sequential_image_rate,
                 rng=rng,
             )
-            image = np.ascontiguousarray(image, dtype=np.float32) * mask.reshape(-1, 1, 1)
+            image = native.apply_mask(image, mask)
 
             # Controls from the (possibly zeroed) positions, as the door
             # loader builds them.

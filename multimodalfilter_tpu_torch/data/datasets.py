@@ -13,33 +13,13 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from ..native import window_gather as _window_gather
 from ..types import Trajectory
 
 
 def _stack_observations(obs_list: Sequence[Dict[str, np.ndarray]]):
     keys = obs_list[0].keys()
     return {k: np.concatenate([o[k] for o in obs_list], axis=0) for k in keys}
-
-
-def _window_gather(src: np.ndarray, starts: np.ndarray, window_len: int) -> np.ndarray:
-    """np.stack([src[s : s + window_len] for s in starts]) for `src` of
-    shape (T, ...), dtype preserved (the numpy path of the JAX package's
-    ``native.window_gather``)."""
-    src = np.ascontiguousarray(src)
-    starts = np.ascontiguousarray(starts, dtype=np.int64)
-    if starts.ndim != 1:
-        raise ValueError(f"starts must be 1-D, got shape {starts.shape}")
-    if starts.size and (int(starts.min()) < 0
-                        or int(starts.max()) + window_len > src.shape[0]):
-        raise ValueError(
-            f"window [start, start+{window_len}) out of bounds for src with "
-            f"{src.shape[0]} rows (starts min {int(starts.min())}, "
-            f"max {int(starts.max())})"
-        )
-    out = np.empty((starts.size, window_len) + src.shape[1:], dtype=src.dtype)
-    for i, s in enumerate(starts):
-        out[i] = src[s : s + window_len]
-    return out
 
 
 class SingleStepDataset:

@@ -88,3 +88,6 @@ class TrajectoriesFile:
         if self.verbose:
             print(f"[TrajectoriesFile] wrote trajectory {index} to {self.path}")
 
+    def abandon_trajectory(self) -> None:
+        """Drop the buffered timesteps without writing them."""
+        self._pending = {}

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..train.optim import load_optimizer_state
+from ..utils.pytree import path_matches_prefix, torch_path_segments
 from .logging import MetricLogger
 
 DEFAULT_CHECKPOINT_DIR = "checkpoints"
@@ -191,9 +192,9 @@ class Buddy:
         "measurement_model.crossmodal_weight_model")."""
         target = source if target is None else target
         params = self._read_checkpoint(label, experiment_name)["params"]
-        src = source + "." if source else ""
-        dst = target + "." if target else ""
-        subtree = {dst + k[len(src):]: v for k, v in params.items() if k.startswith(src)}
+        skip, dst = len(torch_path_segments(source)), torch_path_segments(target)
+        subtree = {".".join(dst + k.split(".")[skip:]): v for k, v in params.items()
+                   if path_matches_prefix(tuple(k.split(".")), source)}
         if not subtree:
             raise KeyError(f"no parameters under {source!r} in the checkpoint")
         current = self.model.params.state_dict()
@@ -208,6 +209,17 @@ class Buddy:
                 current[key].copy_(value)
         if self._verbose:
             print(f"[buddy] loaded module {source!r} -> {target!r}")
+
+    def load_torch_checkpoint(self, path: str) -> None:
+        """Import a trained reference (PyTorch, fannypack) checkpoint into
+        the attached model (the path mapping of
+        ``experiments/torch_import.py``)."""
+        from .torch_import import load_reference_checkpoint
+
+        state = load_reference_checkpoint(path, self.model.definition)
+        self.model.params.load_state_dict(state, strict=True)
+        if self._verbose:
+            print(f"[buddy] imported torch checkpoint: {path}")
 
     # -- logging ---------------------------------------------------------------
     def log_scope(self, scope: str):

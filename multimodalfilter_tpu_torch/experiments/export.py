@@ -1,0 +1,315 @@
+"""Serving export (port of ``multimodalfilter_tpu/experiments/export.py``):
+freeze a filter's eval rollout into a bundle that runs with no model code.
+
+A bundle holds the two programs a deployed filter needs, each traced once
+and saved with ``torch.export``: ``initialize_beliefs`` and the eval
+``forward_loop`` (the encoders hoisted over all T*N frames, then the steps).
+The def's serving transforms at export time (the fused route, bf16 encoders,
+the folded tail, stacked encoders, ``stack_children``) and the enabled mask
+freeze into them; train mode is off. The hand-written kernels stay kernels:
+the programs hold B1 (``mmf_torch::pf_tail``) and B3
+(``mmf_torch::fused_forward``) as custom ops (``ops/custom_ops.py``), as a
+JAX artifact embeds its Pallas kernels as custom calls.
+
+Each program is first traced to ATen operations by ``make_fx`` on fake
+tensors, which runs ``torch.func`` transforms (the EKF's ``vmap(jacrev)``,
+``stack_children``'s ``vmap``) into plain operations, then exported. The
+parameters are an input of both programs, saved beside them.
+
+The random draws are inputs, not traced: the belief's initial noise, and
+each loop's process noise and resampling uniforms. ``ServingBundle`` draws
+them from a ``torch.Generator`` on the bundle's device seeded as
+``StatefulFilter`` seeds its own, in the same shapes and order as the live
+facade, so a bundle replays its source model bitwise on the same device.
+The Kalman filters and the LSTM draw nothing.
+
+Bundle layout (a directory):
+    meta.json   format, def, shapes and dtypes, draws, device, torch version
+    init.pt2    (params, mean, covariance, *init draws) -> belief leaves
+    loop.pt2    (params, belief leaves, observations, controls, *loop draws)
+                -> (belief leaves, estimates)
+    params.pt   the parameters and buffers, by dotted path
+
+Usage:
+    export_serving_bundle(filter_model, "bundle/", observations=obs,
+                          controls=ctrl)
+    served = load_serving_bundle("bundle/")
+    served.initialize_beliefs(mean=m, covariance=c)
+    estimates = served.forward_loop(observations=obs, controls=ctrl)
+
+The load side imports ``ops`` (which registers the custom ops) and
+``types`` only: no model zoo, no ``filtering``. A bundle exported for CUDA
+raises where CUDA is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, List
+
+import torch
+
+from .. import types
+from ..ops import custom_ops  # noqa: F401  (registers mmf_torch::* for load)
+from ..ops import fused_step
+
+_FORMAT_VERSION = 1
+META, INIT, LOOP, PARAMS = "meta.json", "init.pt2", "loop.pt2", "params.pt"
+_DRAWS = {"normal": torch.randn, "uniform": torch.rand}
+_BELIEF_TYPES = {cls.__name__: cls for cls in (types.ParticleBelief, types.GaussianBelief)}
+
+
+# ---------------------------------------------------------------------------
+# Specs, draws and belief structure
+# ---------------------------------------------------------------------------
+
+
+def _spec(x) -> List[Any]:
+    return [list(x.shape), str(x.dtype).replace("torch.", "")]
+
+
+def _spec_tree(x):
+    return {k: _spec(v) for k, v in x.items()} if isinstance(x, dict) else _spec(x)
+
+
+def _draw_specs(defn, n: int, t: int) -> Dict[str, List[Any]]:
+    """The draws of ``defn``'s eval ``initialize_beliefs`` and
+    ``forward_loop`` over N trajectories of T steps, in the order the
+    facade makes them: [kind, shape]. A particle filter draws its initial
+    particles' noise, then each loop's process noise and uniforms; the other
+    filters draw nothing."""
+    if not hasattr(defn, "num_particles"):
+        return {"init": [], "loop": []}
+    m, d = defn.num_particles(False), defn.state_dim
+    return {"init": [["normal", [n, m, d]]],
+            "loop": [["normal", [t, n * m, d]], ["uniform", [t, n, m]]]}
+
+
+def _structure(belief):
+    """(JSON structure, tensor leaves) of a belief: the NamedTuples of
+    ``types`` and tuples of them."""
+    if isinstance(belief, torch.Tensor):
+        return "tensor", [belief]
+    if type(belief).__name__ in _BELIEF_TYPES or isinstance(belief, tuple):
+        parts = [_structure(x) for x in belief]
+        leaves = [leaf for _, sub in parts for leaf in sub]
+        kind = type(belief).__name__ if hasattr(belief, "_fields") else "tuple"
+        return {kind: [s for s, _ in parts]}, leaves
+    raise TypeError(f"cannot export a belief holding {type(belief).__name__}")
+
+
+def _rebuild(structure, leaves):
+    """The belief of ``structure`` from an iterator over its leaves."""
+    if structure == "tensor":
+        return next(leaves)
+    (kind, parts), = structure.items()
+    items = tuple(_rebuild(s, leaves) for s in parts)
+    return items if kind == "tuple" else _BELIEF_TYPES[kind](*items)
+
+
+# ---------------------------------------------------------------------------
+# Export
+# ---------------------------------------------------------------------------
+
+
+class _Bound(torch.nn.Module):
+    """The filter's parameters as a module, for ``functional_call`` to swap
+    the program's parameter input in."""
+
+    def __init__(self, params: torch.nn.Module, fn):
+        super().__init__()
+        self.params = params
+        self._fn = fn
+
+    def forward(self, *args):
+        return self._fn(*args)
+
+
+def _program(filter_model, fn, params, args):
+    """``fn(*args)``, run on ``params`` in place of the model's own, traced
+    to ATen operations on fake tensors and exported."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    bound = _Bound(filter_model.params, fn)
+
+    def call(params, *args):
+        return torch.func.functional_call(
+            bound, {f"params.{k}": v for k, v in params.items()}, args)
+
+    graph = make_fx(call, tracing_mode="fake")(params, *args)
+    program = torch.export.export(graph, (params, *args))
+    # Functional now: drop the operations whose results nothing reads (some
+    # torch versions leave there an unbind of an empty axis, from the EKF's
+    # jacrev, which they then fail to load).
+    program.graph.eliminate_dead_code()
+    program.graph_module.recompile()
+    program.example_inputs = None  # the parameters are saved once, in PARAMS
+    return program
+
+
+def export_serving_bundle(filter_model, path: str, *, observations, controls,
+                          mean=None, covariance=None) -> str:
+    """Export ``filter_model``'s eval rollout as a serving bundle at ``path``.
+
+    Args:
+        filter_model: a ``StatefulFilter``; its def's serving transforms and
+            enabled mask at this call freeze into the bundle, in eval mode.
+        observations / controls: example (T, N, ...) inputs (arrays or
+            tensors) fixing the bundle's shapes: export one bundle per
+            (T, N).
+        mean / covariance: example belief-init moments; default zeros of
+            (N, state_dim) and identities of (N, state_dim, state_dim).
+
+    Returns the bundle directory. The meta records whether a def with the
+    fused route took it (``fused_route``) and, if not, why
+    (``packing_report``).
+    """
+    defn = filter_model.definition
+    enabled = filter_model._enabled_tuple
+    def example(x):
+        return filter_model._to_device(x).contiguous()
+
+    observations = {k: example(v) for k, v in observations.items()}
+    controls = example(controls)
+    t, n = controls.shape[:2]
+    d = defn.state_dim
+    mean = example(torch.zeros(n, d) if mean is None else mean)
+    covariance = example(torch.eye(d).repeat(n, 1, 1) if covariance is None else covariance)
+    draws = _draw_specs(defn, n, t)
+
+    def fake_draws(kind):
+        return [torch.zeros(shape, device=filter_model.device) for _, shape in draws[kind]]
+
+    params = {**dict(filter_model.params.named_parameters()),
+              **dict(filter_model.params.named_buffers())}
+    params = {k: v.detach() for k, v in params.items()}
+
+    def init_fn(mean, covariance, *eps):
+        kwargs = {"eps": eps[0]} if eps else {}
+        belief = defn.initialize_beliefs(mean, covariance, train=False, **kwargs)
+        return tuple(_structure(belief)[1])
+
+    with torch.no_grad():
+        belief = defn.initialize_beliefs(mean, covariance, train=False,
+                                         **({"eps": fake_draws("init")[0]}
+                                            if draws["init"] else {}))
+    structure, leaves = _structure(belief)
+
+    def loop_fn(leaves, observations, controls, *loop_draws):
+        belief = _rebuild(structure, iter(leaves))
+        kwargs = dict(zip(("eps_seq", "uniforms_seq"), loop_draws))
+        belief, estimates = defn.forward_loop(belief, observations, controls, train=False,
+                                              enabled=enabled, **kwargs)
+        return tuple(_structure(belief)[1]), estimates
+
+    init = _program(filter_model, init_fn, params, (mean, covariance, *fake_draws("init")))
+    loop = _program(filter_model, loop_fn, params,
+                    (tuple(leaves), observations, controls, *fake_draws("loop")))
+    fused = None
+    if getattr(defn, "fused_step", False):
+        fused = fused_step.packing_report() is None
+
+    os.makedirs(path, exist_ok=True)
+    torch.export.save(init, os.path.join(path, INIT))
+    torch.export.save(loop, os.path.join(path, LOOP))
+    torch.save({k: v.cpu() for k, v in params.items()}, os.path.join(path, PARAMS))
+    meta: Dict[str, Any] = {
+        "format": _FORMAT_VERSION,
+        "definition": type(defn).__name__,
+        "state_dim": d,
+        "enabled": list(enabled) if enabled is not None else None,
+        "device": filter_model.device.type,
+        "torch_version": torch.__version__,
+        "pipeline": None,
+        "observations_spec": _spec_tree(observations),
+        "controls_spec": _spec(controls),
+        "mean_spec": _spec(mean),
+        "covariance_spec": _spec(covariance),
+        "belief": structure,
+        "init_draws": draws["init"],
+        "loop_draws": draws["loop"],
+        "fused_route": fused,
+        "packing_report": fused_step.packing_report() if fused is False else None,
+    }
+    with open(os.path.join(path, META), "w") as f:
+        json.dump(meta, f, indent=2)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Load
+# ---------------------------------------------------------------------------
+
+
+class ServingBundle:
+    """A loaded serving bundle: the ``StatefulFilter`` eval API (belief,
+    ``initialize_beliefs``, ``forward_loop``, seeded draws) run by the
+    exported programs alone."""
+
+    def __init__(self, path: str, seed: int = 0):
+        with open(os.path.join(path, META)) as f:
+            self.meta = json.load(f)
+        if self.meta["format"] != _FORMAT_VERSION:
+            raise ValueError(f"serving bundle format {self.meta['format']} != "
+                             f"supported {_FORMAT_VERSION}")
+        self.device = torch.device(self.meta["device"])
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{path} was exported for CUDA, which is not available "
+                               "here; export a bundle on the CPU to serve there")
+        self.init_program = torch.export.load(os.path.join(path, INIT)).module()
+        self.loop_program = torch.export.load(os.path.join(path, LOOP)).module()
+        self.params = torch.load(os.path.join(path, PARAMS), weights_only=True,
+                                 map_location=self.device)
+        # StatefulFilter's draws: one generator on the device, seeded so.
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self._leaves = None
+
+    @property
+    def state_dim(self) -> int:
+        return int(self.meta["state_dim"])
+
+    @property
+    def belief(self):
+        if self._leaves is None:
+            return None
+        return _rebuild(self.meta["belief"], iter(self._leaves))
+
+    def _input(self, x, spec, name: str):
+        """x as float32 on the bundle's device; ValueError unless its shape
+        is the exported one."""
+        if isinstance(spec, dict):
+            if not isinstance(x, dict) or set(x) != set(spec):
+                raise ValueError(f"{name} must be a dict with keys {sorted(spec)}")
+            return {k: self._input(x[k], spec[k], f"{name}[{k!r}]") for k in spec}
+        # Contiguous: the programs were traced on contiguous inputs.
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device).contiguous()
+        if list(x.shape) != spec[0]:
+            raise ValueError(f"{name} must be {tuple(spec[0])} (the exported shape), "
+                             f"got {tuple(x.shape)}")
+        return x
+
+    def _draw(self, specs):
+        return [_DRAWS[kind](shape, generator=self.generator, dtype=torch.float32,
+                             device=self.device) for kind, shape in specs]
+
+    def initialize_beliefs(self, *, mean, covariance):
+        mean = self._input(mean, self.meta["mean_spec"], "mean")
+        covariance = self._input(covariance, self.meta["covariance_spec"], "covariance")
+        self._leaves = self.init_program(self.params, mean, covariance,
+                                  *self._draw(self.meta["init_draws"]))
+
+    def forward_loop(self, *, observations, controls):
+        if self._leaves is None:
+            raise RuntimeError("Call initialize_beliefs first")
+        observations = self._input(observations, self.meta["observations_spec"],
+                                   "observations")
+        controls = self._input(controls, self.meta["controls_spec"], "controls")
+        self._leaves, estimates = self.loop_program(self.params, self._leaves, observations,
+                                             controls, *self._draw(self.meta["loop_draws"]))
+        return estimates
+
+
+def load_serving_bundle(path: str, seed: int = 0) -> ServingBundle:
+    return ServingBundle(path, seed=seed)

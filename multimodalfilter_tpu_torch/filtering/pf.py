@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops import custom_ops
 from ..ops import fused_step as _fused
 from ..ops.pf_estimate import pf_update_estimate, pf_update_estimate_reference
 from ..ops.pf_kernels import SMALL_M_MAX, pf_update_and_resample
@@ -128,9 +129,11 @@ class ParticleFilterDef(FilterDef):
             uniforms = torch.rand((n, m), generator=generator,
                                   dtype=particles.dtype, device=particles.device)
         # On CUDA one of B1, B4, B5 by alpha and M; on the CPU B1's plain
-        # version.
+        # version. Under a tracer through the op, which the traced program
+        # keeps (ops/custom_ops.py).
         if particles.is_cuda or (self.soft_resample_alpha >= 1.0 and m <= SMALL_M_MAX):
-            particles, log_weights, estimate = pf_update_and_resample(
+            tail = custom_ops.pf_tail if custom_ops.tracing() else pf_update_and_resample
+            particles, log_weights, estimate = tail(
                 log_weights.contiguous(), log_liks.contiguous(),
                 particles.contiguous(), uniforms.contiguous(),
                 alpha=self.soft_resample_alpha,
@@ -219,8 +222,9 @@ class ParticleFilterDef(FilterDef):
                                  f"got {tuple(uniforms_seq.shape)}")
 
             if self.fused_step and not train:
-                out = _fused.try_fused_forward(self, belief, features_seq, ctrl_feat_seq,
-                                               eps_seq, uniforms_seq, enabled)
+                out = _fused.try_fused_forward(
+                    self, belief, features_seq, ctrl_feat_seq, eps_seq, uniforms_seq,
+                    enabled, run=custom_ops.fused_forward_op if custom_ops.tracing() else None)
                 if out is not None:
                     return out
 

@@ -30,6 +30,7 @@ from ..utils.precision import (
     with_fused_step,
     with_stacked_encoders,
 )
+from ..utils.rng import prng_impl_from_env
 from ..weights import init_params, load_jax_params
 from .base import measurement_initialize
 
@@ -121,11 +122,6 @@ def _child_accessor(root, path: str, definition, name: str):
     )
 
 
-# MMF_TPU_RBG values that leave JAX's default PRNG (utils/rng.py of the JAX
-# package): the only ones the port, which draws from torch.Generator, accepts.
-_RBG_OFF = ("", "0", "off", "false")
-
-
 def _knob(name: str, default_on: bool) -> bool:
     return os.environ.get(name, "1" if default_on else "0") == "1"
 
@@ -152,18 +148,14 @@ def apply_serving_knobs(definition):
       effect: the port's forward_loop is a Python loop, with no scan to
       unroll.
     - ``MMF_TPU_RBG`` is accepted when it leaves JAX's default PRNG (0, off)
-      and refused otherwise: the port draws from ``torch.Generator``.
+      and refused otherwise (``utils/rng.py``): the port draws from
+      ``torch.Generator``.
 
     Training strips the dtype, the fold and the stack again
     (``train/loops.py``), so a model built under the switch trains as a
     plain one and evaluates with the serving stack.
     """
-    rbg = os.environ.get("MMF_TPU_RBG", "0")
-    if rbg.strip().lower() not in _RBG_OFF:
-        raise NotImplementedError(
-            f"MMF_TPU_RBG={rbg!r} picks one of JAX's PRNG implementations; the "
-            "PyTorch port draws from torch.Generator: unset it or set it to 0"
-        )
+    prng_impl_from_env()
     serving = os.environ.get("MMF_TPU_SERVING", "0") == "1"
     int(os.environ.get("MMF_TPU_SCAN_UNROLL", "1"))
     if _knob("MMF_TPU_BF16", serving):

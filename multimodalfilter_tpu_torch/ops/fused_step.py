@@ -200,9 +200,10 @@ def pack_operands(defn, features_seq, ctrl_feat_seq, eps_seq, enabled,
     _require(defn.soft_resample_alpha >= 1.0, "soft resampling")
     _require(ctrl_feat_seq is not None, "dynamics net without a control split")
     dyn_net = defn.dynamics_model.net
-    q = getattr(dyn_net, "q_scale_tril", None)
-    _require(q is not None and torch.equal(q, torch.diag(torch.diagonal(q))),
-             "dynamics noise is not constant-diagonal")
+    # A net built from a noise diagonal (the JAX packing's test, with no
+    # read of the tensor's values, which a tracer could not branch on).
+    _require(hasattr(dyn_net, "q_scale_tril_diag"), "dynamics noise is not constant-diagonal")
+    q = dyn_net.q_scale_tril
     _require(ctrl_feat_seq.shape[-1] == UNITS, "control features != 64")
     t, n = ctrl_feat_seq.shape[:2]
     d = defn.state_dim
@@ -416,11 +417,12 @@ def packing_report() -> Optional[str]:
 
 
 def try_fused_forward(defn, belief, features_seq, ctrl_feat_seq, eps_seq, uni_seq,
-                      enabled):
+                      enabled, run=None):
     """Run ``defn``'s eval forward_loop as B3 (or its plain version on the
     CPU), or return None when the configuration does not qualify; then
     ``packing_report()`` says why and one warning repeats it. Inputs are
-    forward_loop's hoisted arrays."""
+    forward_loop's hoisted arrays; ``run`` (default ``fused_forward``) runs
+    the packed loop: ``custom_ops.fused_forward_op`` under a tracer."""
     global _last_fallback_reason
     try:
         ops = pack_operands(defn, features_seq, ctrl_feat_seq, eps_seq, enabled,
@@ -430,4 +432,4 @@ def try_fused_forward(defn, belief, features_seq, ctrl_feat_seq, eps_seq, uni_se
         warnings.warn(f"fused_step: {exc}; running the per-step path", stacklevel=3)
         return None
     _last_fallback_reason = None
-    return fused_forward(ops, belief, uni_seq)
+    return (run or fused_forward)(ops, belief, uni_seq)

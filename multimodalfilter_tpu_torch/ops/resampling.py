@@ -1,6 +1,7 @@
 """Particle resampling primitives (port of
-``multimodalfilter_tpu/ops/resampling.py``): multinomial and soft
-resampling by inverse CDF, from pre-drawn uniforms or a ``torch.Generator``.
+``multimodalfilter_tpu/ops/resampling.py``): multinomial, systematic and
+soft resampling by inverse CDF, from pre-drawn uniforms or a
+``torch.Generator``.
 
 These divide the CDF by its last entry, as the JAX plain path does; the B1
 kernel (``ops/pf_kernels.py``) does not, so the two agree up to draws that
@@ -43,6 +44,24 @@ def multinomial_resample(particles, log_weights, uniforms=None,
     n, m, _ = particles.shape
     u = _uniforms(n, m, log_weights, uniforms, generator)
     indices = _sample_indices(torch.cumsum(torch.exp(log_weights), dim=-1), u)
+    new_log_weights = torch.full((n, m), -math.log(m), dtype=log_weights.dtype,
+                                 device=log_weights.device)
+    return _gather_particles(particles, indices), new_log_weights
+
+
+def systematic_resample(particles, log_weights, u0=None,
+                        generator: Optional[torch.Generator] = None):
+    """Systematic resampling: one uniform per row, ``u0`` (N, 1) given or
+    drawn from `generator`, at the positions ``(u0 + j) / M``. Lower
+    variance than multinomial; the indices come out sorted. Returns uniform
+    weights."""
+    n, m, _ = particles.shape
+    if u0 is None:
+        u0 = torch.rand((n, 1), generator=generator, device=log_weights.device,
+                        dtype=log_weights.dtype)
+    positions = (u0 + torch.arange(m, device=log_weights.device,
+                                   dtype=log_weights.dtype)[None, :]) / m
+    indices = _sample_indices(torch.cumsum(torch.exp(log_weights), dim=-1), positions)
     new_log_weights = torch.full((n, m), -math.log(m), dtype=log_weights.dtype,
                                  device=log_weights.device)
     return _gather_particles(particles, indices), new_log_weights

@@ -33,6 +33,7 @@ from ...parallel.cli import (
     apply_serving_arg,
     meshes_from_args,
 )
+from ...utils.debug import profile_trace
 
 Task = DoorTask
 REPO_CACHE_DIR = str(Path(__file__).resolve().parents[3] / ".cache")
@@ -66,18 +67,8 @@ def _parser(description: Optional[str] = None) -> argparse.ArgumentParser:
 
 
 def _profiled(profile_dir: Optional[str], fn):
-    if profile_dir is None:
+    with profile_trace(profile_dir, enabled=profile_dir is not None):
         return fn()
-    import torch
-
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        out = fn()
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-    return out
 
 
 def main(argv=None, *, cache_dir: Optional[str] = None) -> Dict[str, float]:

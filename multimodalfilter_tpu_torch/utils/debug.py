@@ -1,9 +1,11 @@
-"""Debug affordances of the train CLI (copy of ``pdb_safety_net`` and
-``get_git_commit_hash`` from ``multimodalfilter_tpu/utils/debug.py``; the
-JAX package's checkify and profiler helpers have no counterpart here)."""
+"""Debug affordances (port of ``multimodalfilter_tpu/utils/debug.py``):
+``pdb_safety_net`` and ``get_git_commit_hash`` for the train CLI (copies);
+``profile_trace``, a ``torch.profiler`` trace around a hot region; and
+``checkify_filter_step``, a finiteness guard on a filter step's outputs."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pdb
 import subprocess
@@ -37,3 +39,79 @@ def get_git_commit_hash(path: Optional[str] = None) -> str:
         )
     except (OSError, subprocess.SubprocessError):  # no git, or not a checkout
         return "(unknown)"
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str, enabled: bool = True):
+    """A ``torch.profiler`` trace of the region, host and (where CUDA is
+    available) device activity, written as a Chrome trace,
+    ``<log_dir>/trace.json`` (chrome://tracing or Perfetto). Yields the
+    profiler, or None when not ``enabled``."""
+    if not enabled:
+        yield None
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class FloatCheckError:
+    """The error half of ``checkify_filter_step``'s result: ``throw()``
+    raises ``FloatingPointError`` if a floating output was not finite."""
+
+    def __init__(self, message: Optional[str]):
+        self.message = message
+
+    def get(self) -> Optional[str]:
+        return self.message
+
+    def throw(self) -> None:
+        if self.message is not None:
+            raise FloatingPointError(self.message)
+
+
+def checkify_filter_step(step_fn):
+    """Wrap a filter step so that it returns (error, result), where
+    ``error.throw()`` raises if a floating tensor of the result holds a NaN
+    or an infinity: the counterpart of the JAX package's checkify guard
+    (and of the reference's inline asserts, e.g.
+    crossmodal/base_models/crossmodal_kf.py:112-143).
+
+    Unlike ``jax.experimental.checkify``, which instruments every operation
+    of the step and so also flags a non-finite intermediate that a later
+    operation hides (a NaN under a ``where``, say), this checks the step's
+    outputs only, after it ran: one reduction on the device per output,
+    read back once."""
+
+    def checked(*args, **kwargs):
+        import torch
+
+        result = step_fn(*args, **kwargs)
+        leaves = []
+
+        def walk(x, path):
+            if isinstance(x, torch.Tensor):
+                if x.is_floating_point():
+                    leaves.append((path, x))
+            elif isinstance(x, dict):
+                for k, v in x.items():
+                    walk(v, f"{path}[{k!r}]")
+            elif isinstance(x, (list, tuple)):
+                for i, v in enumerate(x):
+                    walk(v, f"{path}[{i}]")
+
+        walk(result, "result")
+        if not leaves:
+            return FloatCheckError(None), result
+        finite = torch.stack([torch.isfinite(x).all() for _, x in leaves]).tolist()
+        bad = [path for (path, _), ok in zip(leaves, finite) if not ok]
+        message = f"non-finite values in {', '.join(bad)}" if bad else None
+        return FloatCheckError(message), result
+
+    return checked
