@@ -112,6 +112,7 @@ before that line. Needs one card; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -2818,7 +2819,9 @@ def phase_ekf(door_models, device) -> dict:
 
     obs, controls = sequences(T, N, seed=21)
     mean, cov = initial_state(N)
-    sat_obs, sat_controls = sequences(T, KF_SAT_N, seed=22)
+    # The N=512 rate loops run KF_STACK_T steps (filter-steps/s does not
+    # depend on T here: every step is the same work).
+    sat_obs, sat_controls = sequences(KF_STACK_T, KF_SAT_N, seed=22)
     sat_mean, sat_cov = initial_state(KF_SAT_N)
     dev = {k: torch.from_numpy(v).to(device) for k, v in obs.items()}
     dev_controls = torch.from_numpy(controls).to(device)
@@ -4844,6 +4847,524 @@ def phase_surface(door_models, fused_step, pf_kernels, device) -> dict:
             "b1_host_us": out["ops"]["b1"]["host_us"], "b3_host_us": out["ops"]["b3"]["host_us"]}
 
 
+# -- multidevice ------------------------------------------------------------
+
+MD_MAX_WORLD = 4  # W = min(4, cards): one NCCL rank a card
+MD_T, MD_N, MD_MICRO = 100, 16, 4  # particle-sharded and pipelined eval loops
+MD_TRAIN_TRAJ, MD_TRAIN_T = 32, 32  # 64 windows of TRAIN_L: two steps of TRAIN_B
+MD_PIPE_L = 17  # a pipelined BPTT window: 16 steps divide over 1, 2 or 4 stages
+MD_B2_CALLS = TRAIN_L - 1  # B2f and B2b calls held along DP training: the first step's
+# Gradients of sums split over ranks, time chunks or particle blocks, added
+# in another order: each parameter's within this share of its largest entry,
+# for the parameters whose gradient is not zero up to rounding (at least
+# MD_GRAD_FLOOR of the largest gradient of all: the likelihood models'
+# output biases shift a row's log-likelihoods alike, which normalisation
+# removes, so their gradients are rounding noise, of either sign).
+# At W > 1 a rank runs B/W rows (a pipeline stage B/micro) where one card
+# runs B, and cuDNN picks other convolution algorithms (FFT ones among
+# them) for the smaller batch: the gradients then part as a card's and the
+# CPU's do, and are held to STEP_GRAD_RTOL, the train step's card-against-
+# CPU limit (measured on four cards: 1.6e-4 data-parallel, 8.5e-4 and
+# 9.3e-4 pipelined). At W = 1 they hold MD_GRAD_RTOL (bitwise in practice).
+MD_GRAD_RTOL = 1e-4
+MD_GRAD_FLOOR = 1e-5
+# Parameters after the DP epoch, on the entries whose gradient stood at
+# every step at least 10 times the gradient limit of its parameter's
+# largest gradient from zero (an entry whose gradient is rounding noise
+# steps by O(lr) either way under Adam; one at that signal moves its update
+# by at most 0.1 of lr, 1e-5): within this share of the parameter's scale
+# (at least 1).
+MD_PARAM_ATOL = 1e-5
+
+
+@contextlib.contextmanager
+def md_b2_recorder(pf_estimate, calls, limit):
+    """Record the first `limit` calls of B2f and of B2b (each call's inputs
+    and outputs) while keeping each wrapper's launch count."""
+    real = {k: getattr(pf_estimate, f"pf_update_estimate_{k}") for k in calls}
+
+    class Recorder:
+        def __init__(self, kind):
+            self.kind = kind
+
+        def __call__(self, *args):
+            out = real[self.kind](*args)
+            if len(calls[self.kind]) < limit:
+                calls[self.kind].append((args, out))
+            return out
+
+        @property
+        def launches(self):
+            return real[self.kind].launches
+
+        @launches.setter
+        def launches(self, value):
+            real[self.kind].launches = value
+
+    for kind in calls:
+        setattr(pf_estimate, f"pf_update_estimate_{kind}", Recorder(kind))
+    try:
+        yield
+    finally:
+        for kind in calls:
+            setattr(pf_estimate, f"pf_update_estimate_{kind}", real[kind])
+
+
+@contextlib.contextmanager
+def md_b1_recorder(pf_module, records):
+    """Record every step tail call of the per-step eval loop (B1 on CUDA)."""
+    real = pf_module.pf_update_and_resample
+
+    def recording(log_weights, log_liks, particles, uniforms, **kwargs):
+        out = real(log_weights, log_liks, particles, uniforms, **kwargs)
+        records.append((log_weights, log_liks, uniforms, particles, kwargs, out))
+        return out
+
+    pf_module.pf_update_and_resample = recording
+    try:
+        yield
+    finally:
+        pf_module.pf_update_and_resample = real
+
+
+def md_sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def md_sync_seconds(fn, device) -> tuple:
+    """(fn's result, wall seconds to its end on `device`)."""
+    md_sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    md_sync(device)
+    return out, time.perf_counter() - t0
+
+
+def md_systematic_loop(defn, belief, obs, controls, eps, u0, gaps):
+    """The plain per-step loop whose tail is the update and
+    ops/resampling.py::systematic_resample on the offsets `u0` (T, N);
+    `gaps` gets each step's per-trajectory distance from a stratified
+    position to its nearest CDF entry (a tie below TIE)."""
+    import torch
+
+    from multimodalfilter_tpu_torch.filtering.pf import _tree_map
+    from multimodalfilter_tpu_torch.ops.pf_estimate import pf_update_estimate_reference
+    from multimodalfilter_tpu_torch.ops.pf_kernels import tie_gaps
+    from multimodalfilter_tpu_torch.ops.resampling import systematic_resample
+    from multimodalfilter_tpu_torch.types import ParticleBelief
+
+    features, ctrl_feat = defn.encode_sequences(obs, controls)
+    estimates = []
+    for i in range(controls.shape[0]):
+        particles, log_w = belief
+        n, m, d = particles.shape
+        if ctrl_feat is None:
+            pred, tril = defn.dynamics_model.apply(
+                particles.reshape(n * m, d), controls[i].repeat_interleave(m, dim=0))
+        else:
+            pred, tril = defn.dynamics_model.apply_with_control_features(
+                particles.reshape(n * m, d), ctrl_feat[i].repeat_interleave(m, dim=0))
+        particles = (pred + torch.einsum("bij,bj->bi", tril, eps[i])).reshape(n, m, d)
+        log_liks = defn.measurement_model.log_likelihoods_from_features(
+            particles, _tree_map(lambda v, i=i: v[i], features))
+        log_w, est = pf_update_estimate_reference(log_w, log_liks, particles)
+        positions = (u0[i][:, None] + torch.arange(m, device=u0.device)[None, :]) / m
+        gaps.append(tie_gaps(torch.cumsum(log_w.exp(), 1), positions).amin(1))
+        belief = ParticleBelief(*systematic_resample(particles, log_w, u0=u0[i][:, None]))
+        estimates.append(est)
+    return torch.stack(estimates)
+
+
+def md_first_tie(gaps):
+    """Per trajectory, the first step with a tie (T if none)."""
+    import torch
+
+    gaps = torch.stack(gaps)
+    t_total = gaps.shape[0]
+    steps = torch.arange(t_total, device=gaps.device)[:, None].expand_as(gaps)
+    return torch.where(gaps <= TIE, steps, t_total).amin(0)
+
+
+def md_note(rank, what, start) -> None:
+    """A rank's progress on stderr (a hang shows where it stopped)."""
+    print(f"[multidevice rank {rank}] {what} at {time.perf_counter() - start:.1f} s",
+          file=sys.stderr, flush=True)
+
+
+def md_rank_counts(counters):
+    return {k: c.launches for k, c in counters.items()}
+
+
+def multidevice_rank(rank, world, spec) -> dict:
+    """One rank of the multidevice phase: a world of `world` NCCL ranks, one
+    a card, each running every path on its shard at the door model's
+    published width (weights from numpy_weights), TF32 off."""
+    import contextlib as _contextlib
+    import dataclasses
+    import io
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodalfilter_tpu_torch.crossmodal import door_models, eval_helpers, train_helpers
+    from multimodalfilter_tpu_torch.crossmodal import _eval_batching
+    from multimodalfilter_tpu_torch.crossmodal.tasks import DoorTask
+    from multimodalfilter_tpu_torch.data import SubsequenceDataset, cache, synthetic
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.filtering import pf as pf_module
+    from multimodalfilter_tpu_torch.ops import fused_step, pf_estimate, pf_kernels
+    from multimodalfilter_tpu_torch.parallel import collectives
+    from multimodalfilter_tpu_torch.parallel.data_parallel import (
+        Layout, mesh_forward_loop, train_shard)
+    from multimodalfilter_tpu_torch.parallel.mesh import create_mesh
+    from multimodalfilter_tpu_torch.train import loops
+    from multimodalfilter_tpu_torch.types import ParticleBelief
+    from multimodalfilter_tpu_torch.utils.precision import with_fused_step
+
+    start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(spec["device"])
+    out = {"world_size": world, "backend": dist.get_backend(),
+           "card": torch.cuda.get_device_name(torch.cuda.current_device())
+           if device.type == "cuda" else "cpu"}
+    counters = {"b1": pf_kernels.launch_b1, "b3": fused_step.fused_forward_kernel,
+                "b2f": pf_estimate.pf_update_estimate_fwd,
+                "b2b": pf_estimate.pf_update_estimate_bwd}
+    launches = {k: 0 for k in counters}
+
+    def count(fn):
+        """fn() with every launch counter set to 0 just before it and read
+        just after; the launches add to the phase's main-path counts."""
+        for c in counters.values():
+            c.launches = 0
+        result = fn()
+        md_sync(device)
+        got = md_rank_counts(counters)
+        for k, v in got.items():
+            launches[k] += v
+        return result, got
+
+    def pf_model(fused=False):
+        model = door_models.DoorCrossmodalParticleFilter(device=device)
+        numpy_weights(model.params, EVAL_WEIGHTS_SEED)
+        model.definition = dataclasses.replace(model.definition, num_particles_train=TRAIN_M,
+                                               num_particles_eval=EVAL_M)
+        if fused:
+            model.definition = with_fused_step(model.definition, True)
+        return model
+
+    data_mesh = create_mesh(axis_names=("data",))
+    # The world's first collective sets up NCCL's communicator (about a
+    # second on the card): a barrier here keeps that out of the timed runs.
+    dist.barrier()
+    workdir = spec["work"]
+    os.environ.update({"MMF_TPU_SYNTHESIZE_DATA": "1", "MMF_TPU_OFFLINE": "1",
+                       "MMF_TPU_EVAL_DEVICE_THROUGHPUT": "0",
+                       "MMF_TPU_EVAL_BATCH_REPEATS": "0"})
+
+    md_note(rank, "started", start)
+    # -- data-parallel training: one train_e2e epoch on each card alone (the
+    # first also warms the card up), then the same epoch over the mesh;
+    # cuDNN deterministic, so that at W = 1 the two are the same arithmetic.
+    torch.backends.cudnn.deterministic = True
+    trajs = trajectories(MD_TRAIN_TRAJ, MD_TRAIN_T, seed=31)
+    train = {}
+    for name, mesh in (("warm", None), ("single", None), ("mesh", data_mesh)):
+        model = pf_model()
+        steps = []
+        real_apply = loops.apply_gradients
+
+        def recording(optimizer, module, frozen, reduce=None, steps=steps):
+            result = real_apply(optimizer, module, frozen, reduce)
+            steps.append({k: p.grad.clone() for k, p in module.named_parameters()})
+            return result
+
+        calls = {"fwd": [], "bwd": []}
+        loops.apply_gradients = recording
+        try:
+            buddy = Buddy("md_train", model, log_dir=os.path.join(workdir, "logs"),
+                          verbose=False)
+            train_helpers.configure(buddy=buddy, trajectories=trajs, mesh=mesh)
+            with md_b2_recorder(pf_estimate, calls, MD_B2_CALLS):
+                if mesh is not None:
+                    collectives.reset_counts()
+                    (loss, got), seconds = md_sync_seconds(lambda: count(
+                        lambda: train_helpers.train_e2e(subsequence_length=TRAIN_L,
+                                                        epochs=1, batch_size=TRAIN_B)),
+                        device)
+                    out["train_counts"] = {"+".join(k): v for k, v in collectives.counts.items()}
+                    out["train_launches"] = got
+                else:
+                    loss, seconds = md_sync_seconds(lambda: train_helpers.train_e2e(
+                        subsequence_length=TRAIN_L, epochs=1, batch_size=TRAIN_B), device)
+        finally:
+            loops.apply_gradients = real_apply
+        train[name] = {"loss": loss, "seconds": seconds, "grads": steps,
+                       "params": {k: v.detach().clone()
+                                  for k, v in model.params.state_dict().items()}}
+        if mesh is not None:
+            with torch.no_grad():
+                errs = [[e / max(1.0, float(x.abs().max())) for e, x in
+                         zip(b2_fwd_errs(pf_estimate, args, res), res)]
+                        for args, res in calls["fwd"]]
+                errs += [[e / max(1.0, float(x.abs().max())) for e, x in
+                          zip(b2_bwd_errs(pf_estimate, args, res), res)]
+                         for args, res in calls["bwd"]]
+            worst = max((max(e) for e in errs), default=0.0)
+            check(len(calls["fwd"]) == len(calls["bwd"]) == MD_B2_CALLS,
+                  f"rank {rank}: {len(calls['fwd'])} B2f and {len(calls['bwd'])} B2b calls held")
+            check(worst <= B2_ATOL, f"rank {rank}: B2 along DP training, worst error {worst}")
+            out["b2_along_path"] = {"calls": 2 * MD_B2_CALLS, "worst_of_own_scale": worst}
+            windows = MD_TRAIN_TRAJ * (MD_TRAIN_T // TRAIN_L)
+            optimizer_steps = windows // TRAIN_B
+            check(got["b2f"] == got["b2b"] == optimizer_steps * (TRAIN_L - 1),
+                  f"rank {rank}: DP training launches {got}")
+            check(out["train_counts"].get("all_reduce_sum+mesh") == optimizer_steps,
+                  f"rank {rank}: gradient all-reduces {out['train_counts']}")
+    torch.backends.cudnn.deterministic = False
+    grad_rtol = MD_GRAD_RTOL if world == 1 else STEP_GRAD_RTOL
+    if rank == 0:
+        dp, single = train["mesh"], train["single"]
+        check(math.isclose(dp["loss"], single["loss"], rel_tol=1e-5),
+              f"DP loss {dp['loss']} against one card's {single['loss']}")
+        worst_grad, worst_param, bitwise = 0.0, 0.0, True
+        top = max(float(g.abs().max()) for s in single["grads"] for g in s.values())
+        for k, p in single["params"].items():
+            gscale = max(float(s[k].abs().max()) for s in single["grads"])
+            if gscale >= MD_GRAD_FLOOR * top:
+                for a, b in zip(dp["grads"], single["grads"]):
+                    worst_grad = max(worst_grad,
+                                     float((a[k] - b[k]).abs().max()) / gscale)
+            signal = torch.ones_like(p, dtype=torch.bool)
+            for g in single["grads"]:
+                signal &= g[k].abs() >= 10 * grad_rtol * max(gscale, 1e-30)
+            diff = (dp["params"][k] - p).abs()
+            bitwise &= bool((diff == 0).all())
+            if bool(signal.any()):
+                worst_param = max(worst_param, float(diff[signal].max())
+                                  / max(1.0, float(p.abs().max())))
+        check(worst_grad <= grad_rtol, f"DP step gradients against one card: {worst_grad}")
+        check(worst_param <= MD_PARAM_ATOL, f"DP parameters against one card: {worst_param}")
+        out["train"] = {"loss": dp["loss"], "loss_one_card": single["loss"],
+                        "max_grad_err_of_scale": worst_grad, "grad_rtol": grad_rtol,
+                        "max_param_err_of_scale": worst_param, "bitwise": bitwise,
+                        "optimizer_steps": len(dp["grads"]),
+                        "filter_steps_per_s": len(dp["grads"]) * TRAIN_B * (TRAIN_L - 1)
+                        / dp["seconds"],
+                        "filter_steps_per_s_one_card": len(single["grads"]) * TRAIN_B
+                        * (TRAIN_L - 1) / single["seconds"]}
+    dist.barrier()
+
+    md_note(rank, "DP training done", start)
+    # -- data-parallel eval: run_eval on the door eval set, per-step and
+    # fused, against the same eval on this card alone.
+    cache.set_cache_path(os.path.join(workdir, f"cache{rank}"))
+    eval_set(cache, synthetic)
+    eval_runs = {}
+    for fused in (False, True):
+        model = pf_model(fused)
+        buddy = Buddy("md_eval", model, log_dir=os.path.join(workdir, "logs"), verbose=False)
+        eval_helpers.configure(buddy=buddy, task=DoorTask, dataset_args=dict(EVAL_DATASET_ARGS))
+        states, _, controls = _eval_batching.get_eval_batch()
+        t1, n = controls.shape[0] - 1, controls.shape[1]
+        g = torch.Generator(device=device).manual_seed(41)
+        belief0 = model.definition.initialize_beliefs(
+            torch.from_numpy(states[0]).to(device),
+            0.1 * torch.eye(3, device=device).expand(n, 3, 3), train=False, generator=g)
+        eps = torch.randn((t1, n * EVAL_M, 3), generator=g, device=device)
+        uniforms = torch.rand((t1, n, EVAL_M), generator=g, device=device)
+        for name, mesh in (("mesh", data_mesh), ("single", None)):
+            records = []
+            replay = Replay(model, belief0, eps, uniforms, counters)
+            eval_helpers.configure(buddy=buddy, task=DoorTask,
+                                   dataset_args=dict(EVAL_DATASET_ARGS), mesh=mesh)
+            try:
+                with md_b1_recorder(pf_module, records), \
+                        _contextlib.redirect_stdout(io.StringIO()):
+                    result, seconds = md_sync_seconds(eval_helpers.run_eval, device)
+            finally:
+                replay.restore()
+            if name == "mesh":
+                for _, got in replay.runs:
+                    for k, v in got.items():
+                        launches[k] += v
+            eval_runs[(fused, name)] = {"result": result, "runs": replay.runs,
+                                        "records": records}
+        dp, single = eval_runs[(fused, "mesh")], eval_runs[(fused, "single")]
+        rows = slice(rank * n // world, (rank + 1) * n // world)
+        want = {"b1": 0, "b3": 1} if fused else {"b1": t1, "b3": 0}
+        for _, got in dp["runs"]:
+            check({k: got[k] for k in ("b1", "b3")} == want,
+                  f"rank {rank}: DP eval loop launches {got} (fused {fused})")
+        per_step = eval_runs[(False, "single")]["records"][-t1:]
+        first = first_divergence(per_step, torch.stack([r[1] for r in per_step]), pf_kernels)
+        err, scale, compared = compare_through(dp["runs"][-1][0], single["runs"][-1][0], first)
+        check(compared > 0 and err <= LOOP_ATOL * max(1.0, scale),
+              f"rank {rank}: DP eval (fused {fused}) against one card: {err} over {compared}")
+        key = "eval_fused" if fused else "eval"
+        out[key] = {"N": n, "T": t1, "rows": [rows.start, rows.stop],
+                    "max_abs_err_est": err, "est_scale": scale, "steps_compared": compared,
+                    "launches_per_loop": dp["runs"][-1][1],
+                    "theta_rmse_deg": dp["result"]["theta_rmse_deg"],
+                    "theta_rmse_deg_one_card": single["result"]["theta_rmse_deg"],
+                    "filter_steps_per_s_e2e": dp["result"]["filter_steps_per_sec_e2e"],
+                    "filter_steps_per_s_e2e_one_card":
+                        single["result"]["filter_steps_per_sec_e2e"]}
+        if not fused:
+            out["b1_along_path"] = b1_along_path(pf_kernels, dp["records"])
+    eval_helpers.configure(buddy=buddy, task=DoorTask, dataset_args=dict(EVAL_DATASET_ARGS))
+    dist.barrier()
+
+    md_note(rank, "DP eval done", start)
+    # -- particle-sharded eval at Q = W against the plain loop with
+    # systematic resampling on the same noise and offsets.
+    model = pf_model()
+    model.eval()
+    defn = model.definition
+    obs, controls, belief, eps, uniforms, _ = door_sequences(defn, MD_T, MD_N, EVAL_M,
+                                                             device, seed=43)
+    u0 = torch.rand((MD_T, MD_N), generator=torch.Generator(device=device).manual_seed(44),
+                    device=device)
+    particle_mesh = create_mesh(axis_names=("particle",))
+    with torch.no_grad():
+        for _ in range(2):  # the first run warms up, the second is timed
+            collectives.reset_counts()
+            (_, est), seconds = md_sync_seconds(lambda: mesh_forward_loop(
+                defn, Layout(particle_mesh, particle_axis="particle"), belief, obs, controls,
+                train=False, eps_seq=eps, uniforms_seq=u0), device)
+        shard_counts = {"+".join(k): v for k, v in collectives.counts.items()}
+        gaps = []
+        plain, plain_seconds = md_sync_seconds(
+            lambda: md_systematic_loop(defn, belief, obs, controls, eps, u0, gaps), device)
+    first = md_first_tie(gaps)
+    err, scale, compared = compare_through(est, plain, first)
+    check(compared > 0 and err <= LOOP_ATOL * max(1.0, scale),
+          f"rank {rank}: particle-sharded eval against the systematic plain loop: {err}")
+    check(shard_counts.get("all_reduce_max+particle") == MD_T,
+          f"rank {rank}: particle-sharded collectives {shard_counts}")
+    out["particle_sharded"] = {"Q": world, "N": MD_N, "M": EVAL_M, "T": MD_T,
+                               "max_abs_err_est": err, "est_scale": scale,
+                               "steps_compared": compared, "collectives": shard_counts,
+                               "filter_steps_per_s": MD_T * MD_N / seconds,
+                               "filter_steps_per_s_plain_one_card":
+                                   MD_T * MD_N / plain_seconds}
+
+    md_note(rank, "particle-sharded eval done", start)
+    # -- pipelined eval at P = W, micro 4, against the plain per-step loop.
+    pipe_mesh = create_mesh(axis_names=("pipe",))
+    with torch.no_grad():
+        records = []
+        with md_b1_recorder(pf_module, records):
+            (_, plain), plain_seconds = md_sync_seconds(lambda: defn.forward_loop(
+                belief, obs, controls, train=False, eps_seq=eps, uniforms_seq=uniforms),
+                device)
+        first = first_divergence(records, torch.stack([r[1] for r in records]), pf_kernels)
+        for _ in range(2):  # the first run warms up, the second is timed
+            collectives.reset_counts()
+            ((_, est), got), seconds = md_sync_seconds(lambda: count(lambda: mesh_forward_loop(
+                defn, Layout(pipe_mesh, "pipe", MD_MICRO), belief, obs, controls, train=False,
+                eps_seq=eps, uniforms_seq=uniforms)), device)
+        pipe_counts = {"+".join(k): v for k, v in collectives.counts.items()}
+    err, scale, compared = compare_through(est, plain, first)
+    check(compared > 0 and err <= LOOP_ATOL * max(1.0, scale),
+          f"rank {rank}: pipelined eval against the plain loop: {err}")
+    check(got["b1"] == MD_T // world * MD_MICRO, f"rank {rank}: pipelined B1 launches {got}")
+    out["pipelined"] = {"P": world, "micro": MD_MICRO, "N": MD_N, "M": EVAL_M, "T": MD_T,
+                        "max_abs_err_est": err, "est_scale": scale, "steps_compared": compared,
+                        "launches": got, "collectives": pipe_counts,
+                        "filter_steps_per_s": MD_T * MD_N / seconds,
+                        "filter_steps_per_s_plain_one_card": MD_T * MD_N / plain_seconds}
+
+    md_note(rank, "pipelined eval done", start)
+    # -- one pipelined BPTT step's gradients against train_e2e's loss on one
+    # card (the same batch and draws).
+    train_model = pf_model()
+    dataset = SubsequenceDataset(trajectories(TRAIN_B, MD_PIPE_L, seed=45), MD_PIPE_L)
+    batch = loops._to_device({"states": dataset.states, "controls": dataset.controls,
+                              "obs": dataset.observations}, device)
+    shard = train_shard(train_model.definition, pipe_mesh, batch_size=TRAIN_B,
+                        seq_len=MD_PIPE_L, pipelined=True)
+    grads = {}
+    for name, use in (("plain", None), ("pipelined", shard)):
+        train_model.params.zero_grad(set_to_none=True)
+        g = torch.Generator(device=device).manual_seed(46)
+        with torch.enable_grad():
+            def step(use=use, g=g):
+                loss = loops.e2e_loss(train_model.definition, batch,
+                                      enabled=train_model._enabled_tuple,
+                                      initial_cov_scale=0.1, generator=g, shard=use)
+                loss.backward()
+                return loss
+            if use is None:
+                loss = step()
+            else:
+                loss, got = count(step)
+        for p in train_model.params.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if use is not None:
+            loss = use.all_reduce_gradients(train_model.params, loss)
+        grads[name] = (float(loss.detach()),
+                       {k: p.grad.clone() for k, p in train_model.params.named_parameters()})
+    top = max(float(v.abs().max()) for v in grads["plain"][1].values())
+    worst = max(float((grads["pipelined"][1][k] - v).abs().max()) / float(v.abs().max())
+                for k, v in grads["plain"][1].items()
+                if float(v.abs().max()) >= MD_GRAD_FLOOR * top)
+    check(math.isclose(grads["pipelined"][0], grads["plain"][0], rel_tol=1e-5),
+          f"rank {rank}: pipelined BPTT loss {grads['pipelined'][0]} against {grads['plain'][0]}")
+    check(worst <= grad_rtol, f"rank {rank}: pipelined BPTT gradients: {worst}")
+    check(got["b2f"] == got["b2b"] == (MD_PIPE_L - 1) // world * shard.layout.micro,
+          f"rank {rank}: pipelined BPTT launches {got}")
+    out["pipelined_bptt"] = {"P": world, "micro": shard.layout.micro, "B": TRAIN_B,
+                             "L": MD_PIPE_L, "max_grad_err_of_scale": worst,
+                             "grad_rtol": grad_rtol,
+                             "loss": grads["pipelined"][0], "launches": got}
+    md_note(rank, "pipelined BPTT done", start)
+    out["launches"] = launches
+    return out
+
+
+def phase_multidevice(device, world=None) -> dict:
+    """The multi-device paths on W = min(4, cards) NCCL ranks, one a card
+    (parallel/launch.py): data-parallel training and eval (per-step and
+    fused), particle-sharded eval, pipelined eval and a pipelined BPTT step,
+    each against the same work on one card."""
+    import tempfile
+
+    import torch
+
+    from multimodalfilter_tpu_torch.parallel.launch import spawn
+
+    if world is None:
+        world = min(MD_MAX_WORLD, torch.cuda.device_count())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_md_") as work:
+        t0 = time.perf_counter()
+        ranks = spawn(multidevice_rank, world, str(device),
+                      {"work": work, "device": str(device)}, timeout_s=300)
+        wall_s = time.perf_counter() - t0
+    first = ranks[0]
+    check(len(ranks) == world and all(r["world_size"] == world for r in ranks),
+          "multidevice: world size")
+    for key in ("eval", "eval_fused"):
+        check(all(r[key]["theta_rmse_deg"] == first[key]["theta_rmse_deg"] for r in ranks),
+              f"multidevice: the ranks' {key} metrics differ")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines() \
+        if device.type == "cuda" else []
+    emit({"phase": "multidevice", "world_size": world, "backend": first["backend"],
+          "cards": [r["card"] for r in ranks], "nvidia_smi": smi[:world], "wall_s": wall_s,
+          **{k: first[k] for k in ("train", "train_counts", "train_launches", "b2_along_path",
+                                   "eval", "eval_fused", "b1_along_path", "particle_sharded",
+                                   "pipelined", "pipelined_bptt", "launches")}})
+    return first["launches"]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4853,7 +5374,7 @@ def main(argv=None) -> int:
     parser.add_argument("--yardstick", metavar="DIR",
                         help="also time B1, B4, B2f and B2b against the wrappers and kernels "
                              "of the checkout at DIR, in turns")
-    parser.add_argument("--phase", choices=["push", "surface"],
+    parser.add_argument("--phase", choices=["push", "surface", "multidevice"],
                         help="build the kernels and run this phase alone")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4894,6 +5415,8 @@ def main(argv=None) -> int:
     if opts.phase is not None:
         if opts.phase == "push":
             phase_push(fused_step, pf_kernels, pf_estimate, pf_module, device, None)
+        elif opts.phase == "multidevice":
+            phase_multidevice(device)
         else:
             phase_surface(door_models, fused_step, pf_kernels, device)
         print(smi, flush=True)
@@ -4944,6 +5467,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     surface = phase_surface(door_models, fused_step, pf_kernels, device)
     phase_s["surface"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    multidevice = phase_multidevice(device)
+    phase_s["multidevice"] = time.perf_counter() - t0
     emit({"phase": "train_cli_phases_wall_s", **phase_s})
     times = phase_times(main_path["model"], pf_kernels, device)
     if old is not None:
@@ -4972,6 +5498,7 @@ def main(argv=None) -> int:
         "push_cli_launches": push["launches"]["cli"]["b1"],
         "op": "mmf_torch::pf_tail",
         "bundle_launches": surface["b1_bundle_launches"],
+        "multidevice_launches": multidevice["b1"],
         "host_us": surface["b1_host_us"],
         "max_abs_err": b1_check["max_abs_err_est"],
         "max_abs_err_est": b1_check["max_abs_err_est"],
@@ -4991,6 +5518,7 @@ def main(argv=None) -> int:
         "train_cli_launches": train_cli["launches"][key],
         "push_launches": push["launches"][key],
         "push_cli_launches": push["launches"]["cli"][key],
+        "multidevice_launches": multidevice[key],
         "max_abs_err": b2_check[part],
         "shape": [TRAIN_B, TRAIN_M, 3],
         "ms": b2_times[f"{key}_{TRAIN_B}x{TRAIN_M}x3"]["ms"],
@@ -5009,6 +5537,7 @@ def main(argv=None) -> int:
         "push_launches": push["launches"]["b3"],
         "op": "mmf_torch::fused_forward",
         "bundle_launches": surface["b3_bundle_launches"],
+        "multidevice_launches": multidevice["b3"],
         "host_us": surface["b3_host_us"],
         "max_abs_err": b3_check["max_abs_err_est"],
         "shape": [T, N, M, 3, 2],

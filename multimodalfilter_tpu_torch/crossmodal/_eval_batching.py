@@ -7,6 +7,11 @@ with 0.1*I covariance. The batch is loaded once with masking off: the
 observations and controls stay on the model's device, cached across the
 stochastic repeats, and each repeat re-applies the image blackout there. The
 states stay numpy (the metrics are numpy).
+
+With a data-parallel mesh every rank holds the whole batch (the blackout
+masks come from the same seeds on every rank) and its filter runs its own
+rows of it (``StatefulFilter.use_data_parallel``); the batch must divide
+over the mesh's data axis.
 """
 
 from __future__ import annotations
@@ -21,6 +26,19 @@ from . import _eval_state as S
 
 def _device():
     return S.filter_model.device
+
+
+def check_batch_divisible(n_traj: int, mesh) -> None:
+    """The data-parallel eval's guard: the eval batch splits evenly over the
+    mesh's data axis."""
+    from ..parallel.mesh import axis_size
+
+    n_dev = axis_size(mesh, "data")
+    if n_traj % n_dev:
+        raise ValueError(
+            f"data-parallel eval needs the eval batch (N={n_traj} trajectories) to "
+            f"divide over the mesh's data axis ({n_dev}); pass a divisor of N to "
+            "--data-parallel, or evaluate on one device")
 
 
 def get_eval_batch(tile: int = 1):
@@ -49,6 +67,8 @@ def get_eval_batch(tile: int = 1):
             k: native.stack_axis1([o[k] for s, o, c in trajectories], min_timesteps)
             for k in trajectories[0].observations.keys()
         }
+        if S.mesh is not None:
+            check_batch_divisible(controls.shape[1], S.mesh)
         device = _device()
         observations = {k: torch.from_numpy(v).to(device) for k, v in observations.items()}
         controls = torch.from_numpy(controls).to(device)

@@ -52,12 +52,15 @@ def device_throughput(observations, controls, states, chain: int = 4) -> float:
     its own noise from a generator of its own (the facade's stream is left
     as it was). (T-1)*N*chain steps a run.
 
+    The loops are the configured ones (``StatefulFilter.run_loop``): on a
+    mesh, data-parallel or pipelined, with T padded to the stage count as
+    ``forward_loop`` pads it, and the steps counted are the (T-1)*N useful
+    ones, so the padding's cost is billed.
+
     The JAX package perturbs each chained loop's inputs by i*1e-12 so that
     XLA cannot hoist the encoders out of its chained program; eager PyTorch
     hoists nothing, so the inputs are passed as they are."""
     filter_model = S.filter_model
-    defn = filter_model.definition
-    enabled = filter_model._enabled_tuple
     device = filter_model.device
     t, n = states.shape[:2]
     obs_rest = {k: v[1:] for k, v in observations.items()}
@@ -70,8 +73,8 @@ def device_throughput(observations, controls, states, chain: int = 4) -> float:
         b = belief
         with torch.no_grad():
             for _ in range(chain):
-                b, est = defn.forward_loop(b, obs_rest, ctrl_rest, train=False,
-                                           enabled=enabled, generator=generator)
+                b, est = filter_model.run_loop(b, obs_rest, ctrl_rest,
+                                               generator=generator)
         float(est.sum())
 
     chained(CHAIN_SEED)

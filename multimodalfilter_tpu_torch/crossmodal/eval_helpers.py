@@ -45,6 +45,7 @@ buddy: Buddy
 filter_model = None
 task = None
 dataset_args: Dict = {}
+mesh = None
 
 # The shared cache object (tests clear and inspect it through this name).
 _eval_batch_cache = S.batch_cache
@@ -52,18 +53,25 @@ _eval_batch_cache = S.batch_cache
 
 def configure(*, buddy: Buddy, task, dataset_args: Dict, mesh=None,
               pipeline_mesh=None, pipeline_microbatches=None):
-    """Set the model, task and dataset arguments of the eval. ``mesh`` and
-    ``pipeline_mesh`` (data-parallel and pipelined eval) are not ported
-    yet."""
-    del pipeline_microbatches  # read only with a pipeline_mesh
+    """Set the model, task and dataset arguments of the eval.
+
+    ``mesh`` (a "data" axis) splits the eval trajectories data-parallel:
+    each rank filters its rows with the global draws, and the estimates are
+    gathered in rank order, so the metrics are those of one device.
+    ``pipeline_mesh`` instead runs the rollout through the temporal
+    pipeline on its "pipe" axis (T padded to the stage count); a ("data",
+    "pipe") grid combines the two, and a "particle" axis splits a PF's
+    particles too. The two meshes are exclusive.
+    ``pipeline_microbatches=None`` takes the largest divisor of the
+    per-shard batch up to 8."""
     if not issubclass(task, tasks.Task):
         raise TypeError(f"{task} is not a Task")
-    if mesh is not None or pipeline_mesh is not None:
-        raise NotImplementedError(
-            "data-parallel and pipelined eval are not ported yet (ROADMAP A13)"
-        )
-    S.set_state(buddy=buddy, task=task, dataset_args=dataset_args)
-    for name in ("buddy", "filter_model", "task", "dataset_args"):
+    if mesh is not None and pipeline_mesh is not None:
+        raise ValueError("mesh (data-parallel) and pipeline_mesh (pipelined) are exclusive")
+    buddy.model.use_data_parallel(mesh)
+    buddy.model.use_pipeline(pipeline_mesh, num_microbatches=pipeline_microbatches)
+    S.set_state(buddy=buddy, task=task, dataset_args=dataset_args, mesh=mesh)
+    for name in ("buddy", "filter_model", "task", "dataset_args", "mesh"):
         globals()[name] = getattr(S, name)
 
 

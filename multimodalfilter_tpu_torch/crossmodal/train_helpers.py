@@ -23,6 +23,9 @@ buddy: Buddy
 filter_model = None
 trajectories: List[Trajectory]
 num_workers: int = 0
+mesh = None
+pipeline_mesh = None
+pipeline_microbatches = None  # None: the largest divisor of the per-shard batch up to 8
 
 
 def configure(
@@ -36,16 +39,27 @@ def configure(
 ):
     """Configure global settings for the training helpers. ``num_workers``
     is accepted for CLI compatibility and unused (the data lives on the
-    device); ``mesh`` and ``pipeline_mesh`` are not ported yet."""
-    del pipeline_microbatches  # read only with a pipeline_mesh
-    if mesh is not None or pipeline_mesh is not None:
-        raise NotImplementedError(
-            "data-parallel and pipelined training are not ported yet (ROADMAP A13)"
-        )
+    device). ``mesh`` (a "data" axis) trains e2e BPTT data-parallel;
+    ``pipeline_mesh`` (a "pipe" axis, with "data" and "particle" axes where
+    present) runs it through the temporal pipeline instead
+    (``train.loops.train_e2e``). The two are exclusive; the other
+    curriculum primitives run on each rank alike, as in the JAX package."""
+    from ..parallel.mesh import axis_names
+
+    if mesh is not None and pipeline_mesh is not None:
+        raise ValueError("mesh (data-parallel) and pipeline_mesh (pipelined) are exclusive")
+    if mesh is not None and "data" not in axis_names(mesh):
+        raise ValueError(f"a data-parallel mesh needs a 'data' axis, not {axis_names(mesh)}")
+    if pipeline_mesh is not None and "pipe" not in axis_names(pipeline_mesh):
+        raise ValueError("a pipeline mesh needs a 'pipe' axis, not "
+                         f"{axis_names(pipeline_mesh)}")
     globals()["buddy"] = buddy
     globals()["filter_model"] = buddy.model
     globals()["trajectories"] = trajectories
     globals()["num_workers"] = num_workers
+    globals()["mesh"] = mesh
+    globals()["pipeline_mesh"] = pipeline_mesh
+    globals()["pipeline_microbatches"] = pipeline_microbatches
 
 
 def _check_mse(loss_function):
@@ -104,5 +118,6 @@ def train_e2e(*, subsequence_length, epochs, batch_size=32, initial_cov_scale=0.
         buddy, model, dataset, epochs=epochs, batch_size=batch_size,
         initial_cov_scale=initial_cov_scale,
         measurement_initialize=measurement_initialize,
-        optimizer_name=optimizer_name,
+        optimizer_name=optimizer_name, mesh=mesh, pipeline_mesh=pipeline_mesh,
+        pipeline_microbatches=pipeline_microbatches,
     )

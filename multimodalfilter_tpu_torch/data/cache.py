@@ -14,6 +14,7 @@ own cache path: it is not the JAX package's ``_cache_path``.
 
 from __future__ import annotations
 
+import fcntl
 import os
 import re
 import urllib.request
@@ -131,15 +132,36 @@ def cached_file(name: str, url: str = "", sha256: Optional[str] = None) -> str:
          network never wait on one);
       2. download from `url` (unless empty or MMF_TPU_OFFLINE=1);
       3. raise with instructions.
+
+    A miss is filled under an exclusive ``flock`` of ``.<name>.lock`` in the
+    cache, and the file appears under its name only when whole: the ranks
+    of a multi-device run (or any processes) that miss together fill it
+    once, and the others wait and read that file.
     """
     path = os.path.join(get_cache_path(), name)
+    if os.path.exists(path):
+        return path
+    os.makedirs(get_cache_path(), exist_ok=True)
+    with open(os.path.join(get_cache_path(), f".{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _fill(name, path, url, sha256)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _fill(name: str, path: str, url: str, sha256: Optional[str]) -> str:
     if os.path.exists(path):
         return path
 
     if _synthesize():
         from . import synthetic
 
-        synthetic.synthesize_named_dataset(name, path)
+        # Written aside and renamed, as a download is: a reader that finds
+        # the name (without the lock) finds the whole file.
+        tmp = f"{path}.{os.getpid()}.tmp"
+        synthetic.synthesize_named_dataset(name, tmp)
+        os.replace(tmp, path)
         return path
 
     download_error: Optional[Exception] = None

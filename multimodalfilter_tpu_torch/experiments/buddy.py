@@ -14,6 +14,11 @@ state-dict keys are the dotted flax param paths, which address submodules as
 the JAX package's paths do. JAX checkpoints (``.ckpt``, msgpack) are not
 read here: convert their params with ``weights.params_from_jax``.
 Directories are created when first written to.
+
+In a multi-device run (``torch.distributed`` initialised) rank 0 alone
+writes checkpoints, metadata and logs; after a checkpoint every rank waits
+at a barrier, so that any rank may then read it. The other ranks keep
+their metadata in memory.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..parallel.mesh import barrier, is_writer
 from ..train.optim import load_optimizer_state
 from ..utils.pytree import path_matches_prefix, torch_path_segments
 from .logging import MetricLogger
@@ -73,7 +79,7 @@ class Buddy:
         self._pending_optimizer_state: Dict[str, Any] = {}
         self._optimizer_dict: Dict[str, torch.optim.Optimizer] = _OptimizerDict(self)
         self._steps = 0
-        self._logger = MetricLogger(log_dir, experiment_name)
+        self._logger = MetricLogger(log_dir, experiment_name, write=is_writer())
         self._load_metadata_file()
         if model is not None:
             self.attach_model(model)
@@ -114,6 +120,8 @@ class Buddy:
         return os.path.join(self._metadata_dir, f"{self.experiment_name}.json")
 
     def _write_metadata_file(self) -> None:
+        if not is_writer():
+            return
         os.makedirs(self._metadata_dir, exist_ok=True)
         with open(self._metadata_path, "w") as f:
             json.dump(self._metadata, f, indent=2, default=str)
@@ -138,10 +146,12 @@ class Buddy:
                            for name, opt in self._optimizer_dict.items()},
         }
         path = self._checkpoint_path(label)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save(state, path)
-        if self._verbose:
-            print(f"[buddy] saved checkpoint: {path}")
+        if is_writer():
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            torch.save(state, path)
+            if self._verbose:
+                print(f"[buddy] saved checkpoint: {path}")
+        barrier()
         return path
 
     def _read_checkpoint(self, label: Optional[str],

@@ -37,9 +37,21 @@ Usage:
     served.initialize_beliefs(mean=m, covariance=c)
     estimates = served.forward_loop(observations=obs, controls=ctrl)
 
-The load side imports ``ops`` (which registers the custom ops) and
-``types`` only: no model zoo, no ``filtering``. A bundle exported for CUDA
-raises where CUDA is missing.
+The load side imports ``ops`` (which registers the custom ops), ``types``
+and the collectives of ``parallel`` only: no model zoo, no ``filtering``. A
+bundle exported for CUDA raises where CUDA is missing.
+
+A model with a temporal pipeline configured (``use_pipeline``, with a
+"data" axis or without) exports as a pipelined bundle: ``loop.pt2`` is one
+stage's program, the per-step loop over a T/P chunk of one microbatch
+(shapes are static, so T must divide over the stages at export), and
+``meta.json`` records the mesh's axes and shape, the stages and the
+microbatches. Loaded in a world of the recorded size (``torchrun
+--nproc-per-node N``), ``ServingBundle.forward_loop`` runs the pipeline's
+schedule and relay (``parallel/schedule.py``) around that program on each
+rank, with the live model's global draws, and returns the global estimates.
+A pipeline with a "particle" axis does not export: its chunk holds
+collectives.
 """
 
 from __future__ import annotations
@@ -196,18 +208,32 @@ def export_serving_bundle(filter_model, path: str, *, observations, controls,
                                             if draws["init"] else {}))
     structure, leaves = _structure(belief)
 
+    if getattr(filter_model, "_pipeline", None) is None:
+        pipeline, loop_defn = None, defn
+        loop_args = (tuple(leaves), observations, controls, *fake_draws("loop"))
+    else:  # the program of one stage's chunk of one microbatch
+        pipeline, chunk = _pipeline_chunk(filter_model, n, t, draws)
+        loop_defn, steps, rows = chunk["defn"], chunk["steps"], chunk["rows"]
+        loop_args = (tuple(x[:rows] for x in leaves),
+                     {k: v[:steps, :rows].contiguous() for k, v in observations.items()},
+                     controls[:steps, :rows].contiguous(), *chunk["draws"])
+    from ..parallel.mesh import barrier, is_writer
+
+    if not is_writer():  # in a multi-device run rank 0 traces and writes the bundle
+        barrier()
+        return path
+
     def loop_fn(leaves, observations, controls, *loop_draws):
         belief = _rebuild(structure, iter(leaves))
         kwargs = dict(zip(("eps_seq", "uniforms_seq"), loop_draws))
-        belief, estimates = defn.forward_loop(belief, observations, controls, train=False,
-                                              enabled=enabled, **kwargs)
+        belief, estimates = loop_defn.forward_loop(belief, observations, controls,
+                                                   train=False, enabled=enabled, **kwargs)
         return tuple(_structure(belief)[1]), estimates
 
     init = _program(filter_model, init_fn, params, (mean, covariance, *fake_draws("init")))
-    loop = _program(filter_model, loop_fn, params,
-                    (tuple(leaves), observations, controls, *fake_draws("loop")))
+    loop = _program(filter_model, loop_fn, params, loop_args)
     fused = None
-    if getattr(defn, "fused_step", False):
+    if getattr(loop_defn, "fused_step", False):
         fused = fused_step.packing_report() is None
 
     os.makedirs(path, exist_ok=True)
@@ -221,7 +247,7 @@ def export_serving_bundle(filter_model, path: str, *, observations, controls,
         "enabled": list(enabled) if enabled is not None else None,
         "device": filter_model.device.type,
         "torch_version": torch.__version__,
-        "pipeline": None,
+        "pipeline": pipeline,
         "observations_spec": _spec_tree(observations),
         "controls_spec": _spec(controls),
         "mean_spec": _spec(mean),
@@ -234,7 +260,40 @@ def export_serving_bundle(filter_model, path: str, *, observations, controls,
     }
     with open(os.path.join(path, META), "w") as f:
         json.dump(meta, f, indent=2)
+    barrier()
     return path
+
+
+def _pipeline_chunk(filter_model, n: int, t: int, draws):
+    """(the meta's "pipeline" record, the chunk program's def, steps, rows
+    and example draws) of a model with a pipeline configured."""
+    import dataclasses
+
+    from ..parallel.mesh import axis_names, axis_size
+
+    layout = filter_model._layout(n)
+    mesh = layout.mesh
+    if layout.particle_axis is not None:
+        raise ValueError("a pipeline with a 'particle' axis does not export: its chunk "
+                         "holds the particle-sharded step's collectives (ROADMAP A13's "
+                         "rest: pipelined export of a particle axis)")
+    stages, rows = axis_size(mesh, layout.pipe_axis), axis_size(mesh, layout.data_axis)
+    if t % stages:
+        raise ValueError(f"a pipelined bundle needs T ({t}) divisible by the stage count "
+                         f"({stages}): export an exportable T")
+    steps, rows = t // stages, n // rows // layout.micro
+    defn = filter_model.definition
+    if hasattr(defn, "fused_step"):  # per-step chunks, as the live pipeline runs them
+        defn = dataclasses.replace(defn, fused_step=False)
+    device = filter_model.device
+    chunk_draws = []
+    for kind, shape in draws["loop"]:
+        per_row = shape[1] // n
+        chunk_draws.append(torch.zeros([steps, rows * per_row] + shape[2:], device=device))
+    record = {"axes": list(axis_names(mesh)), "shape": list(mesh.mesh.shape),
+              "pipe_axis": layout.pipe_axis, "data_axis": layout.data_axis,
+              "stages": stages, "microbatches": layout.micro}
+    return record, {"defn": defn, "steps": steps, "rows": rows, "draws": chunk_draws}
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +324,13 @@ class ServingBundle:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self._leaves = None
+        self._mesh = None
+        pipeline = self.meta.get("pipeline")
+        if pipeline is not None:
+            from ..parallel.mesh import create_mesh
+
+            self._mesh = create_mesh(axis_names=pipeline["axes"], shape=pipeline["shape"],
+                                     device=self.device)
 
     @property
     def state_dim(self) -> int:
@@ -306,9 +372,48 @@ class ServingBundle:
         observations = self._input(observations, self.meta["observations_spec"],
                                    "observations")
         controls = self._input(controls, self.meta["controls_spec"], "controls")
+        draws = self._draw(self.meta["loop_draws"])
+        if self._mesh is not None:
+            self._leaves, estimates = self._pipelined_loop(observations, controls, draws)
+            return estimates
         self._leaves, estimates = self.loop_program(self.params, self._leaves, observations,
-                                             controls, *self._draw(self.meta["loop_draws"]))
+                                             controls, *draws)
         return estimates
+
+    def _pipelined_loop(self, observations, controls, draws):
+        """The pipeline's schedule around the exported chunk program: this
+        rank's rows (data axis), its stage's time chunk, each microbatch's
+        rows of the global draws (a normal draw holds a row's particles
+        together, a uniform draw a row's slots); the estimates and the final
+        belief gathered over the data axis."""
+        from ..parallel import collectives
+        from ..parallel.mesh import axis_index, axis_size, block
+        from ..parallel.schedule import run_schedule
+
+        pipeline, mesh = self.meta["pipeline"], self._mesh
+        t, n = controls.shape[:2]
+        pipe, data = pipeline["pipe_axis"], pipeline["data_axis"]
+        rows = block(n, mesh, data)
+        t_loc = t // axis_size(mesh, pipe)
+        span = slice(axis_index(mesh, pipe) * t_loc, (axis_index(mesh, pipe) + 1) * t_loc)
+        observations = {k: v[span, rows] for k, v in observations.items()}
+        controls = controls[span, rows]
+        draws = [d[span].reshape((t_loc, n, -1) + tuple(d.shape[2:]))[:, rows] for d in draws]
+
+        def run_chunk(mine, mb):
+            chunk_draws = [d[:, mb].reshape((t_loc, -1) + tuple(d.shape[3:])) for d in draws]
+            leaves, est = self.loop_program(
+                self.params, tuple(mine), {k: v[:, mb].contiguous() for k, v in
+                                           observations.items()},
+                controls[:, mb].contiguous(), *chunk_draws)
+            return list(leaves), est
+
+        with torch.no_grad():
+            final, est = run_schedule(mesh, pipe, pipeline["microbatches"],
+                                      [x[rows] for x in self._leaves], run_chunk, train=False)
+            est = collectives.all_gather(est, mesh, data, dim=1)
+            final = [collectives.all_gather(x, mesh, data) for x in final]
+        return final, est
 
 
 def load_serving_bundle(path: str, seed: int = 0) -> ServingBundle:

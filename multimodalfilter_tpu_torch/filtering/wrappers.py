@@ -12,6 +12,11 @@ is a view of a submodule
 ``filter_model.filter_models[0].dynamics_model``): its dotted path and
 sub-def, which is what the train loops and ``freeze_module`` need.
 ``apply_serving_knobs`` reads the ``MMF_TPU_*`` serving knobs.
+
+On a mesh (``use_data_parallel``, ``use_pipeline``) ``forward_loop`` takes
+and returns global arrays, as the JAX facade does, and each rank runs its
+shard (``parallel/data_parallel.py::mesh_forward_loop``): every rank holds
+the same belief and generator, so they draw the same global noise.
 """
 
 from __future__ import annotations
@@ -33,6 +38,24 @@ from ..utils.precision import (
 from ..utils.rng import prng_impl_from_env
 from ..weights import init_params, load_jax_params
 from .base import measurement_initialize
+
+
+def pad_time_to_stages(observations, controls, stages: int):
+    """Zero-pad the leading time axis of (observations (a tensor or a dict
+    of them), controls) up to a multiple of `stages`: the padding rule of
+    every pipelined rollout (``StatefulFilter.run_loop`` and the eval's
+    chained timer), as in the JAX facade."""
+
+    def pad(x):
+        extra = (-x.shape[0]) % stages
+        if not extra:
+            return x
+        return torch.cat([x, x.new_zeros((extra,) + tuple(x.shape[1:]))], dim=0)
+
+    if isinstance(observations, dict):
+        return {k: pad(v) for k, v in observations.items()}, pad(controls)
+    return pad(observations), pad(controls)
+
 
 # Tuple fields of the fused per-modality models (the reference's
 # nn.ModuleLists).
@@ -189,12 +212,103 @@ class StatefulFilter:
         # discarded loop before it times a new one.
         self._loops_run: set = set()
         self.frozen_paths: set = set()
+        # The multi-device layout of forward_loop: (mesh, axis_name,
+        # num_microbatches or None, data axis, particle axis) of the
+        # pipeline, or the data-parallel mesh; None on one device.
+        self._pipeline = None
+        self._data_mesh = None
         # The fused per-modality models (none for a plain PF or EKF, or for
         # the LSTM).
         count = _fusion_count(definition)
         self._enabled_models: Optional[List[bool]] = [True] * count if count else None
 
     # -- mode / config ------------------------------------------------------
+    def use_pipeline(self, mesh, axis_name: str = "pipe", num_microbatches=None):
+        """Run ``forward_loop`` through the temporal pipeline: the time axis
+        over `mesh`'s `axis_name`, the belief relayed stage to stage
+        (``parallel/temporal_pipeline.py``). T is zero-padded to a multiple
+        of the stage count and the padded estimates dropped; the stored
+        belief is then that of the padded rollout (eval re-initialises it
+        for every run). ``mesh=None`` turns it off.
+
+        ``num_microbatches=None`` takes the largest divisor of the per-shard
+        batch up to 8 when the loop runs. A "data" axis on the mesh splits
+        the trajectories over it as well (the data x pipe grid); a
+        "particle" axis splits a particle filter's particles inside each
+        stage; all three compose."""
+        if mesh is None:
+            self._pipeline = None
+            self._loops_run.clear()
+            return
+        from ..parallel.mesh import axis_names
+        from .pf import ParticleFilterDef
+
+        names = axis_names(mesh)
+        if axis_name not in names:
+            raise ValueError(
+                f"the pipeline mesh has axes {names} and no {axis_name!r} axis: pass a "
+                "mesh with a pipeline axis (create_mesh(4, ('pipe',)) or a ('data', "
+                "'pipe') grid), or set axis_name to match")
+        data_axis = "data" if "data" in names and axis_name != "data" else None
+        particle_axis = "particle" if "particle" in names and axis_name != "particle" else None
+        if particle_axis is not None:
+            if not isinstance(self.definition, ParticleFilterDef):
+                raise ValueError(
+                    "a 'particle' mesh axis splits a particle filter's particles; "
+                    f"{type(self.definition).__name__} cannot pipeline over it")
+            import warnings
+
+            warnings.warn(
+                "particle-axis sharding resamples with collectives: B1, B4, B5 and B3 "
+                "(and the serving tail) are bypassed inside the particle-sharded step",
+                stacklevel=2)
+        self._pipeline = (mesh, axis_name,
+                          None if num_microbatches is None else int(num_microbatches),
+                          data_axis, particle_axis)
+        self._loops_run.clear()
+
+    def use_data_parallel(self, mesh, axis_name: str = "data"):
+        """Split ``forward_loop``'s trajectories over `mesh`'s `axis_name`:
+        each rank filters its rows with the global draws sliced to them
+        (through B1, B4, B5 or B3 on CUDA, as on one device), and the
+        estimates are gathered in rank order. ``mesh=None`` turns it off."""
+        if mesh is not None:
+            from ..parallel.mesh import axis_names
+
+            if axis_name not in axis_names(mesh):
+                raise ValueError(f"the data-parallel mesh has axes {axis_names(mesh)} "
+                                 f"and no {axis_name!r} axis")
+            mesh = (mesh, axis_name)
+        self._data_mesh = mesh
+        self._loops_run.clear()
+
+    @staticmethod
+    def _auto_microbatches(n: int, cap: int = 8) -> int:
+        """Largest divisor of n that is <= cap (>= 1)."""
+        from ..parallel.data_parallel import auto_microbatches
+
+        return auto_microbatches(n, cap)
+
+    def _layout(self, batch: int):
+        """The ``parallel.data_parallel.Layout`` of a loop over `batch`
+        trajectories, or None on one device."""
+        from ..parallel.data_parallel import Layout
+        from ..parallel.mesh import axis_size
+
+        if self._pipeline is not None:
+            mesh, axis_name, micro, data_axis, particle_axis = self._pipeline
+            if micro is None:
+                data_size = axis_size(mesh, data_axis)
+                if batch % data_size:
+                    raise ValueError(f"eval batch N={batch} does not divide over the "
+                                     f"pipeline mesh's {data_size}-way data axis")
+                micro = self._auto_microbatches(batch // data_size)
+            return Layout(mesh, axis_name, micro, data_axis, particle_axis)
+        if self._data_mesh is not None:
+            mesh, axis_name = self._data_mesh
+            return Layout(mesh, data_axis=axis_name)
+        return None
+
     def train(self, mode: bool = True):
         self._training = mode
         self.params.train(mode)
@@ -264,12 +378,18 @@ class StatefulFilter:
 
     def loop_cache_key(self, batch: int):
         """The configuration the next ``forward_loop`` over `batch`
-        trajectories runs in: (mode, enabled modalities, batch, def). The
+        trajectories runs in: (mode, enabled modalities, batch, def, and the
+        multi-device layout). The
         JAX facade keys its compiled loops so; here a key first run pays the
         kernels' build and cuDNN's first calls, which the eval's warm-up
         (``crossmodal/_eval_throughput.warm_up_loop``) keeps out of the
         timed run."""
-        return (self._training, self._enabled_tuple, batch, id(self.definition))
+        layout = self._layout(batch)
+        if layout is not None:
+            from ..parallel.mesh import mesh_fingerprint
+
+            layout = layout._replace(mesh=mesh_fingerprint(layout.mesh))
+        return (self._training, self._enabled_tuple, batch, id(self.definition), layout)
 
     # -- submodule handles ------------------------------------------------------
     def __getattr__(self, name: str):
@@ -336,15 +456,42 @@ class StatefulFilter:
         and `uniforms_seq` replace the generator's draws (to replay a run)."""
         if self._belief is None:
             raise RuntimeError("Call initialize_beliefs first")
-        self._belief, estimates = self.definition.forward_loop(
+        self._belief, estimates = self.run_loop(
             self._belief, self._to_device(observations), self._to_device(controls),
-            train=self._training, enabled=self._enabled_tuple,
             eps_seq=None if eps_seq is None else self._to_device(eps_seq),
             uniforms_seq=None if uniforms_seq is None else self._to_device(uniforms_seq),
             generator=self.generator,
         )
         self._loops_run.add(self.loop_cache_key(estimates.shape[1]))
         return estimates
+
+    def run_loop(self, belief, observations, controls, *, generator,
+                 eps_seq=None, uniforms_seq=None):
+        """The configured loop from `belief` over device tensors, drawing
+        from `generator`: (final belief, estimates (T, N, D)); the stored
+        belief is left alone. On a mesh the inputs and outputs are global
+        (with a pipeline, T is padded to the stage count, and the noise is
+        drawn for the padded T)."""
+        layout = self._layout(controls.shape[1])
+        train, enabled = self._training, self._enabled_tuple
+        if layout is None:
+            return self.definition.forward_loop(
+                belief, observations, controls, train=train, enabled=enabled,
+                eps_seq=eps_seq, uniforms_seq=uniforms_seq, generator=generator)
+        from ..parallel.data_parallel import mesh_forward_loop
+        from ..parallel.mesh import axis_size
+
+        t = controls.shape[0]
+        if layout.pipe_axis is not None:
+            observations, controls = pad_time_to_stages(
+                observations, controls, axis_size(layout.mesh, layout.pipe_axis))
+            if eps_seq is not None and eps_seq.shape[0] != controls.shape[0]:
+                raise ValueError("the pre-drawn noise of a pipelined loop covers the "
+                                 f"padded time axis ({controls.shape[0]} steps)")
+        belief, estimates = mesh_forward_loop(
+            self.definition, layout, belief, observations, controls, train=train,
+            enabled=enabled, eps_seq=eps_seq, uniforms_seq=uniforms_seq, generator=generator)
+        return belief, estimates[:t]
 
     # -- Kalman filter surface -------------------------------------------------
     @property

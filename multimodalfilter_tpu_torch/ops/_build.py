@@ -6,11 +6,18 @@ first use (rebuilt when the source or a ``csrc/*.cuh`` header it may include
 is newer) and loaded with ``ctypes``.
 Building needs CUDA and ``nvcc``; without them this raises, and nothing
 falls back to another implementation.
+
+One build per machine: ``build`` holds an exclusive ``flock`` on
+``build/.lock`` while it checks and compiles, so when the ranks of a
+``torchrun`` world (or any processes) reach it together, the first builds
+and the others wait, find the libraries fresh and build nothing. The kernel
+drops the lock when its holder exits, so a killed build leaves none behind.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
 import shutil
@@ -60,11 +67,20 @@ def build(names: Optional[Iterable[str]] = None) -> List[str]:
         raise RuntimeError("CUDA is not available: the CUDA kernels cannot be built")
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_stale(names)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_stale(names) -> List[str]:
     todo = [n for n in names if _stale(n)]
     if not todo:
         return []
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in todo:
         # Write to a temporary file first so a concurrent loader never maps a

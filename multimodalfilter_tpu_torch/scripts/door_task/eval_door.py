@@ -9,7 +9,9 @@ A checkpoint and its metadata determine the model: the metadata's
 the latest one without a label) fills its parameters. The eval is
 ``run_eval_stats`` (20 stochastic repeats), by default with the repeats
 folded into the batch axis. Runs on ``cuda`` unless ``--device`` says
-otherwise. Checkpoints and metadata are read from ``checkpoints/`` and
+otherwise. The parallelism flags run the eval on their mesh under
+``torchrun --nproc-per-node N`` (``parallel/cli.py``); rank 0 writes
+``--save``'s metadata. Checkpoints and metadata are read from ``checkpoints/`` and
 ``metadata/`` under the working directory; datasets from the repo's
 ``.cache/`` (where ``h5py`` is missing, set MMF_TPU_SYNTHESIZE_DATA=1 to
 synthesise the eval set in memory).
@@ -81,8 +83,9 @@ def run(task, argv=None, *, cache_dir: Optional[str] = None,
         description: Optional[str] = None) -> Dict[str, float]:
     """The eval CLI of `task` (the door and push CLIs share it)."""
     args = _parser(description).parse_args(argv)
-    meshes_from_args(args)
     apply_serving_arg(args)
+    # Before the model is built: on CUDA this makes the rank's card current.
+    mesh, pipeline_mesh = meshes_from_args(args, device=args.device)
     os.environ["MMF_TPU_EVAL_BATCH_REPEATS"] = "1" if args.batched_repeats else "0"
 
     set_cache_path(cache_dir or REPO_CACHE_DIR)
@@ -95,7 +98,12 @@ def run(task, argv=None, *, cache_dir: Optional[str] = None,
     buddy.attach_model(filter_model)
     buddy.load_checkpoint(label=args.checkpoint_label)
 
-    eval_helpers.configure(buddy=buddy, task=task, dataset_args=dataset_args)
+    eval_helpers.configure(
+        buddy=buddy, task=task, dataset_args=dataset_args,
+        # With both flags the grid carries the data axis; eval takes it alone.
+        mesh=None if pipeline_mesh is not None else mesh,
+        pipeline_mesh=pipeline_mesh, pipeline_microbatches=args.pipeline_microbatches,
+    )
     results = _profiled(args.profile_dir, lambda: eval_helpers.run_eval_stats(
         measurement_initialize=args.measurement_init))
 

@@ -6,8 +6,8 @@
 
 The door train CLI's shape (``scripts/door_task/train_door.py``: the JAX
 CLI's flags, metadata keys, ``--resume`` through ``ResumableCurriculum``,
-``--serving``, ``--device`` with ``cuda`` the default, the parallelism flags
-refused naming ROADMAP A13) over ``PushTask`` (its dataset flags add
+``--serving``, ``--device`` with ``cuda`` the default, the parallelism
+flags under ``torchrun``) over ``PushTask`` (its dataset flags add
 ``--kloss_dataset``) and the eight per-class push curricula of
 ``run_curriculum``. As in the JAX CLI, the Seq5 branch binds the filter's
 measurement model before use (the reference's leaves it unbound), and

@@ -87,9 +87,12 @@ def _epoch_index_matrix(rng: np.random.Generator, n: int, batch_size: int):
     return perm[: num_batches * batch_size].reshape(num_batches, batch_size)
 
 
-def _make_step(buddy, root, loss_fn, optimizer_name):
+def _make_step(buddy, root, loss_fn, optimizer_name, shard=None):
     """fn(batch) -> detached loss: one optimizer step of the named Adam over
-    all of the root filter's parameters."""
+    all of the root filter's parameters. With a `shard`
+    (``parallel.data_parallel.TrainShard``) the gradients and the loss are
+    all-reduced over its mesh before the step, and the loss returned is the
+    global batch's."""
     optimizer = get_named_optimizer(buddy, optimizer_name, root.params)
     frozen = frozenset(root.frozen_paths)
 
@@ -98,19 +101,25 @@ def _make_step(buddy, root, loss_fn, optimizer_name):
         with torch.enable_grad():
             loss = loss_fn(batch)
             loss.backward()
-        apply_gradients(optimizer, root.params, frozen)
-        return loss.detach()
+        if shard is None:
+            apply_gradients(optimizer, root.params, frozen)
+            return loss.detach()
+        return apply_gradients(optimizer, root.params, frozen,
+                               reduce=lambda module: shard.all_reduce_gradients(module, loss))
 
     return step
 
 
-def _run_epochs(buddy, root, step, data, n, *, epochs, batch_size, loss_name):
+def _run_epochs(buddy, root, step, data, n, *, epochs, batch_size, loss_name,
+                rows: slice = slice(None)):
+    """Shuffled epochs of `step` over batches of `batch_size`; each step
+    gets `rows` of its batch (a rank's rows on a data-parallel mesh)."""
     rng = np.random.default_rng(buddy.optimizer_steps + 1)
     last_loss = None
     for _ in range(epochs):
         idx_matrix = torch.as_tensor(_epoch_index_matrix(rng, n, batch_size),
                                      device=root.device)
-        losses = torch.stack([step(_gather(data, idx)) for idx in idx_matrix])
+        losses = torch.stack([step(_gather(data, idx[rows])) for idx in idx_matrix])
         buddy.increment_steps(int(idx_matrix.shape[0]))
         last_loss = float(losses.mean())
         buddy.log_scalar(f"train/{loss_name}", last_loss)
@@ -232,14 +241,19 @@ def train_virtual_sensor(
 
 
 def e2e_loss(defn, batch, *, enabled, initial_cov_scale, generator,
-             measurement_initialize=False):
+             measurement_initialize=False, shard=None):
     """The e2e loss of one batch (JAX loops.py:387-413): beliefs at the true
     first state with initial_cov_scale * I (or, with
     `measurement_initialize`, from the first frame's observations), the
     train-mode filter loop over the remaining L-1 steps, then the MSE of the
     estimates. A particle filter's noise (the initial particles' and each
     step's) comes from ``draw_noise``; a def without particles (the Kalman
-    filters, the LSTM) draws nothing."""
+    filters, the LSTM) draws nothing.
+
+    With a `shard` (``parallel.data_parallel.TrainShard``) `batch` is this
+    rank's rows of the global batch: the noise is drawn for the global
+    batch and sliced to those rows, the loop is the shard's, and the loss
+    is the mean over the rows."""
     states = _time_major(batch["states"])  # (L, B, D)
     controls = _time_major(batch["controls"])
     obs = _time_major(batch["obs"])
@@ -247,9 +261,15 @@ def e2e_loss(defn, batch, *, enabled, initial_cov_scale, generator,
     init_noise, loop_noise = {}, {}
     if hasattr(defn, "num_particles"):
         m = defn.num_particles(train=True)
-        init_noise["eps"], loop_noise["eps_seq"] = draw_noise(
-            generator, ((b, m, d), (seq_len - 1, b * m, d)), states.device
+        total = b if shard is None else shard.batch_size
+        eps, eps_seq = draw_noise(
+            generator, ((total, m, d), (seq_len - 1, total * m, d)), states.device
         )
+        if shard is not None:
+            eps = eps[shard.rows]
+            eps_seq = eps_seq.reshape(seq_len - 1, total, m, d)[:, shard.rows].reshape(
+                seq_len - 1, b * m, d)
+        init_noise["eps"], loop_noise["eps_seq"] = eps, eps_seq
     if measurement_initialize:
         belief = _base.measurement_initialize(defn, {k: v[0] for k, v in obs.items()},
                                               enabled=enabled, train=True)
@@ -257,10 +277,13 @@ def e2e_loss(defn, batch, *, enabled, initial_cov_scale, generator,
         cov = torch.eye(d, dtype=states.dtype, device=states.device) * initial_cov_scale
         belief = defn.initialize_beliefs(states[0], cov.expand(b, d, d), train=True,
                                          **init_noise)
-    _, estimates = defn.forward_loop(
-        belief, {k: v[1:] for k, v in obs.items()}, controls[1:], train=True,
-        enabled=enabled, **loop_noise,
-    )
+    obs_rest = {k: v[1:] for k, v in obs.items()}
+    if shard is None:
+        _, estimates = defn.forward_loop(belief, obs_rest, controls[1:], train=True,
+                                         enabled=enabled, **loop_noise)
+    else:
+        _, estimates = shard.loop(defn, belief, obs_rest, controls[1:], enabled=enabled,
+                                  **loop_noise)
     return torch.mean((estimates - states[1:]) ** 2)
 
 
@@ -270,23 +293,40 @@ def train_e2e(
     mesh=None, pipeline_mesh=None, pipeline_microbatches=None,
 ):
     """BPTT through `subsequence_length` filter steps (torchfilter.train.
-    train_filter equivalent), resampling off."""
-    del pipeline_microbatches  # read only with a pipeline_mesh
-    if mesh is not None or pipeline_mesh is not None:
-        raise NotImplementedError(
-            "data-parallel and pipelined training are not ported yet (ROADMAP A13)"
-        )
+    train_filter equivalent), resampling off.
+
+    With `mesh` (a "data" axis) the batch splits data-parallel over it:
+    each rank takes its rows of every batch and the global draws sliced to
+    them, and one all-reduce a step averages the gradients. With
+    `pipeline_mesh` BPTT runs through the temporal pipeline on its "pipe"
+    axis ((subsequence_length - 1) must divide over the stages), the
+    relay differentiable; a "data" axis on it splits the batch as `mesh`
+    does and a "particle" axis splits a PF's particles, all three composing.
+    `pipeline_microbatches` None takes the largest divisor of the per-shard
+    batch up to 8. The two meshes are exclusive. Every rank starts from
+    rank 0's parameters and steps Adam on the same reduced gradients."""
+    if mesh is not None and pipeline_mesh is not None:
+        raise ValueError("mesh (data-parallel) and pipeline_mesh (pipelined) are exclusive")
     root, defn = _model_parts(model)
     defn = _strip_serving_transforms(defn)
     enabled = root._enabled_tuple
+    shard = None
+    if mesh is not None or pipeline_mesh is not None:
+        from ..parallel.data_parallel import train_shard
+
+        shard = train_shard(defn, pipeline_mesh if mesh is None else mesh,
+                            batch_size=batch_size, seq_len=dataset.subsequence_length,
+                            pipelined=mesh is None, microbatches=pipeline_microbatches)
+        shard.broadcast_parameters(root.params)
 
     def loss_fn(batch):
         return e2e_loss(defn, batch, enabled=enabled,
                         initial_cov_scale=initial_cov_scale, generator=root.generator,
-                        measurement_initialize=measurement_initialize)
+                        measurement_initialize=measurement_initialize, shard=shard)
 
     data = _to_device({"states": dataset.states, "controls": dataset.controls,
                        "obs": dataset.observations}, root.device)
-    step = _make_step(buddy, root, loss_fn, optimizer_name)
+    step = _make_step(buddy, root, loss_fn, optimizer_name, shard)
     return _run_epochs(buddy, root, step, data, len(dataset), epochs=epochs,
-                       batch_size=batch_size, loss_name="e2e")
+                       batch_size=batch_size, loss_name="e2e",
+                       rows=slice(None) if shard is None else shard.rows)

@@ -14,7 +14,7 @@ optax (the door curriculum's phase 3 keeps one optimizer across a switch of
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Callable, Iterable, Optional
 
 import torch
 from torch import nn
@@ -45,15 +45,19 @@ def zero_frozen_grads(module: nn.Module, frozen_paths: Iterable[str]) -> None:
 
 
 def apply_gradients(optimizer: torch.optim.Optimizer, module: nn.Module,
-                    frozen_paths: Iterable[str]) -> None:
+                    frozen_paths: Iterable[str], reduce: Optional[Callable] = None):
     """One optimizer step over `module`: every missing ``.grad`` becomes
-    zeros (never None), frozen paths' gradients are zeroed, then Adam
-    steps."""
+    zeros (never None), frozen paths' gradients are zeroed, `reduce`
+    (module) runs (the all-reduce of training on a mesh, which so sees every
+    gradient, frozen ones zero), then Adam steps. Returns what `reduce`
+    returns."""
     for p in module.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     zero_frozen_grads(module, frozen_paths)
+    out = reduce(module) if reduce is not None else None
     optimizer.step()
+    return out
 
 
 def load_optimizer_state(optimizer: torch.optim.Optimizer, saved) -> bool:

@@ -20,6 +20,7 @@ setter.
 import dataclasses
 import json
 import os
+import sys
 
 import jax
 import numpy as np
@@ -44,8 +45,12 @@ from multimodalfilter_tpu_torch.data import augment, cache, synthetic
 from multimodalfilter_tpu_torch.experiments import Buddy
 from multimodalfilter_tpu_torch.filtering import pf as tpf
 from multimodalfilter_tpu_torch.ops import pf_kernels
+from multimodalfilter_tpu_torch.parallel.mesh import create_mesh
 from multimodalfilter_tpu_torch.scripts.door_task import eval_door
 from multimodalfilter_tpu_torch.types import ParticleBelief
+
+sys.path.insert(0, "tests")
+import test_torch_port_dist_worker as worker  # noqa: E402
 
 EVAL_FILES = ("panda_door_pull_10.hdf5", "panda_door_push_10.hdf5")
 DATASET_ARGS = dict(use_vision=True, use_proprioception=True, use_haptics=True,
@@ -354,7 +359,10 @@ def test_eval_cli_from_a_saved_checkpoint(tiny_data_dir, models, tmp_path, monke
 ])
 def test_eval_cli_refuses_what_is_not_ported(tiny_data_dir, tmp_path, monkeypatch, argv,
                                              item):
-    """The parallelism flags raise naming A13. --serving, ported by A8, is
+    """The parallelism flags (the A13 cases) ask for two devices, and this
+    test's world is one process: the CLI exits naming the torchrun launch
+    they need and writes nothing (the flags in a world of two ranks:
+    test_torch_port_multidevice_cli.py). --serving, ported by A8, is
     honoured as the JAX CLI honours it: it sets MMF_TPU_SERVING=1 (as JAX's
     apply_serving_arg does) before the model is built, so the model the CLI
     evaluates carries bf16 encoders and the folded tail."""
@@ -368,10 +376,14 @@ def test_eval_cli_refuses_what_is_not_ported(tiny_data_dir, tmp_path, monkeypatc
     monkeypatch.setenv("MMF_TPU_EVAL_BATCH_REPEATS", "0")
     buddy = Buddy("refused", tdoor.DoorParticleFilter(device="cpu"), verbose=False)
     buddy.set_metadata({"model_type": "DoorParticleFilter", "dataset_args": DATASET_ARGS})
-    argv = ["--experiment-name", "refused", "--device", "cpu", *argv]
+    argv = ["--experiment-name", "refused", "--device", "cpu", "--save", *argv]
     if item != "A8":
-        with pytest.raises(NotImplementedError, match=item):
+        before = sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*"))
+        meta = (tmp_path / "metadata" / "refused.json").read_text()
+        with pytest.raises(SystemExit, match="torchrun --nproc-per-node 2"):
             eval_door.main(argv, cache_dir=str(tiny_data_dir))
+        assert sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*")) == before
+        assert (tmp_path / "metadata" / "refused.json").read_text() == meta
         return
     buddy.save_checkpoint()
     seen = []
@@ -386,9 +398,34 @@ def test_eval_cli_refuses_what_is_not_ported(tiny_data_dir, tmp_path, monkeypatc
     assert mm.dtype == torch.bfloat16 and mm.fold_tail
 
 
-def test_configure_refuses_a_mesh(models, tmp_path):
-    buddy = Buddy("mesh", models[1], log_dir=str(tmp_path), verbose=False)
-    with pytest.raises(NotImplementedError, match="A13"):
-        teval.configure(buddy=buddy, task=DoorTask, dataset_args=DATASET_ARGS,
-                        mesh=object())
+def test_configure_refuses_a_mesh(configured, tmp_path):
+    """configure takes a data-parallel mesh: in a world of one process its
+    eval is the eval on one device, bit for bit. It refuses a mesh that does
+    not fit: one without a 'data' axis, both meshes at once, and (when the
+    batch is loaded) a data axis the eval batch does not divide over, here
+    a 3-way one for the 4 trajectories (a stand-in mesh: this world has one
+    rank; test_torch_port_multidevice_cli.py runs the eval on two)."""
+    _, tm = configured
+    buddy = Buddy("mesh", tm, log_dir=str(tmp_path), verbose=False)
+    results = {}
+    with worker.world_of_one():
+        mesh = create_mesh(1, device="cpu")
+        for name, use_mesh in (("mesh", mesh), ("single", None)):
+            tm.generator.manual_seed(5)
+            teval.configure(buddy=buddy, task=DoorTask, dataset_args=dict(DATASET_ARGS),
+                            mesh=use_mesh)
+            results[name] = teval.run_eval()
+        with pytest.raises(ValueError, match="'data' axis"):
+            teval.configure(buddy=buddy, task=DoorTask, dataset_args=DATASET_ARGS,
+                            mesh=create_mesh(1, ("pipe",), device="cpu"))
+        with pytest.raises(ValueError, match="exclusive"):
+            teval.configure(buddy=buddy, task=DoorTask, dataset_args=DATASET_ARGS,
+                            mesh=mesh, pipeline_mesh=mesh)
+    for key in ("theta_rmse_deg", "x_rmse_cm", "y_rmse_cm"):
+        assert results["mesh"][key] == results["single"][key]
+    teval.configure(buddy=buddy, task=DoorTask, dataset_args=dict(DATASET_ARGS),
+                    mesh=worker.AxisSizes(data=3))
+    with pytest.raises(ValueError, match="--data-parallel"):
+        teval.run_eval()
+    tm.use_data_parallel(None)
 

@@ -6,6 +6,7 @@ rule for missing gradients against optax, module handles and freezing, and
 training with autograd switched off globally."""
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -25,8 +26,12 @@ from multimodalfilter_tpu_torch.data import datasets as tdatasets
 from multimodalfilter_tpu_torch.experiments import Buddy
 from multimodalfilter_tpu_torch.filtering.wrappers import freeze_module, unfreeze_module
 from multimodalfilter_tpu_torch.ops import pf_estimate
+from multimodalfilter_tpu_torch.parallel.mesh import create_mesh
 from multimodalfilter_tpu_torch.train import optim
 from multimodalfilter_tpu_torch.types import Trajectory
+
+sys.path.insert(0, "tests")
+import test_torch_port_dist_worker as worker  # noqa: E402
 
 # fp32 sums over M (and over D) in another order than the Pallas body; the
 # values are O(1-10). The same tolerances as the JAX package's own B2 tests
@@ -320,7 +325,31 @@ def test_frozen_module_gets_no_update_from_a_fresh_optimizer(tmp_path):
 
 
 def test_mesh_training_is_not_ported(tmp_path):
-    model = _door_model()
-    buddy = Buddy("mesh", model, log_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A13"):
-        train_helpers.configure(buddy=buddy, trajectories=[], mesh=object())
+    """train_helpers.configure takes a data-parallel mesh: in a world of one
+    process train_e2e on it is train_e2e on one device, bit for bit. A mesh
+    that does not fit is refused: one without a 'data' axis, both meshes at
+    once, and a data axis the batch does not divide over (a 3-way stand-in
+    for a batch of 2: this world has one rank; test_torch_port_multidevice
+    .py trains on four)."""
+    params = {}
+    trajectories = _trajectories((8, 8), seed=2)
+    with worker.world_of_one():
+        mesh = create_mesh(1, device="cpu")
+        for name, use_mesh in (("mesh", mesh), ("single", None)):
+            model = _door_model(seed=3)
+            buddy = Buddy("mesh", model, log_dir=str(tmp_path / name))
+            train_helpers.configure(buddy=buddy, trajectories=trajectories, mesh=use_mesh)
+            train_helpers.train_e2e(subsequence_length=3, epochs=1, batch_size=2)
+            params[name] = model.params.state_dict()
+        with pytest.raises(ValueError, match="'data' axis"):
+            train_helpers.configure(buddy=buddy, trajectories=trajectories,
+                                    mesh=create_mesh(1, ("pipe",), device="cpu"))
+        with pytest.raises(ValueError, match="exclusive"):
+            train_helpers.configure(buddy=buddy, trajectories=trajectories, mesh=mesh,
+                                    pipeline_mesh=mesh)
+    for k, v in params["single"].items():
+        assert torch.equal(params["mesh"][k], v), k
+    train_helpers.configure(buddy=buddy, trajectories=trajectories,
+                            mesh=worker.AxisSizes(data=3))
+    with pytest.raises(ValueError, match="does not divide"):
+        train_helpers.train_e2e(subsequence_length=3, epochs=1, batch_size=2)

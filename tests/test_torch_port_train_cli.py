@@ -194,17 +194,25 @@ def test_cli_wiring(cli_workspace, monkeypatch, resume):
     assert meta["eval_results"]["theta_rmse_deg"] == results["theta_rmse_deg"]
 
 
+# The ids are those the cases had when the parallelism flags were refused
+# outright; each case now holds what the flag does in this test's world of
+# one process.
 @pytest.mark.parametrize("argv,raises,match", [
-    (["--serving"], NotImplementedError, "A8"),
-    (["--data-parallel", "2"], NotImplementedError, "A13"),
-    (["--pipeline-stages", "2"], NotImplementedError, "A13"),
-])
+    (["--serving"], None, "A8"),
+    (["--data-parallel", "2"], SystemExit, "torchrun --nproc-per-node 2"),
+    (["--pipeline-stages", "2"], SystemExit, "torchrun --nproc-per-node 2"),
+], ids=["argv0-NotImplementedError-A8", "argv1-NotImplementedError-A13",
+        "argv2-NotImplementedError-A13"])
 def test_cli_refuses_what_is_not_ported(cli_workspace, monkeypatch, argv, raises, match):
-    """The parallelism flags raise naming A13 and write nothing. --serving,
-    ported by A8, is honoured as the JAX CLI honours it: MMF_TPU_SERVING=1
-    (as JAX's apply_serving_arg sets it) before the model is built, so the
-    curriculum receives a model whose def carries bf16 encoders and the
-    folded tail (the train loops strip them; eval keeps them)."""
+    """A parallelism flag asking for more devices than the world has (one
+    process here) exits naming the torchrun launch it needs, and writes
+    nothing, as the JAX CLI fails on too few devices (tests of the flags in
+    a world of several ranks: test_torch_port_multidevice_cli.py).
+    --serving, ported by A8, is honoured as the JAX CLI honours it:
+    MMF_TPU_SERVING=1 (as JAX's apply_serving_arg sets it) before the model
+    is built, so the curriculum receives a model whose def carries bf16
+    encoders and the folded tail (the train loops strip them; eval keeps
+    them)."""
     import argparse
     import os
 
@@ -216,6 +224,8 @@ def test_cli_refuses_what_is_not_ported(cli_workspace, monkeypatch, argv, raises
         with pytest.raises(raises, match=match):
             train_door.main(argv, cache_dir=str(cli_workspace / "cache"))
         assert not (cli_workspace / "metadata").exists()
+        assert not (cli_workspace / "checkpoints").exists()
+        assert not (cli_workspace / "logs").exists()
         return
     monkeypatch.setenv("MMF_TPU_SERVING", "0")
     seen = []
