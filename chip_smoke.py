@@ -2500,12 +2500,84 @@ def phase_train_cli(fused_step, pf_kernels, pf_estimate, pf_module, device, work
     return {"launches": launches, "trajs": trajs, "t_eval": t_eval}
 
 
+class SaveSnapshots:
+    """Wraps ``Buddy.save_checkpoint``: each call's parameters copied to the
+    host just before it (by label), and the ms the call blocks its caller
+    (the card synchronised before it, not after)."""
+
+    def __init__(self, buddy_cls):
+        import torch
+
+        self.params, self.blocking_ms = {}, {}
+        self._cls, self._real = buddy_cls, buddy_cls.save_checkpoint
+        real = self._real
+
+        def wrapped(buddy, label=None):
+            self.params[label] = {k: v.detach().to("cpu", copy=True)
+                                  for k, v in buddy.model.params.state_dict().items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = real(buddy, label)
+            self.blocking_ms[label] = (time.perf_counter() - t0) * 1e3
+            return path
+
+        buddy_cls.save_checkpoint = wrapped
+
+    def restore(self):
+        self._cls.save_checkpoint = self._real
+
+
+CKPT_SAVES = 5  # saves timed under each backend
+
+
+def checkpoint_save_times(model, work) -> dict:
+    """Median ms that a save of the trained model and a stepped Adam blocks
+    its caller under each backend, and for the asynchronous one the ms from
+    the call to the commit (``wait_for_checkpoints`` right after it)."""
+    import os
+
+    import torch
+
+    from multimodalfilter_tpu_torch.experiments import Buddy
+    from multimodalfilter_tpu_torch.train import optim
+
+    out = {}
+    for backend in ("msgpack", "orbax"):
+        buddy = Buddy("save_times", model, checkpoint_dir=os.path.join(work.path, "save_times"),
+                      metadata_dir=os.path.join(work.path, "save_times_meta"),
+                      log_dir=os.path.join(work.path, "save_times_logs"),
+                      checkpoint_backend=backend, verbose=False)
+        optimizer = optim.get_named_optimizer(buddy, "e2e", model.params)
+        for p in model.params.parameters():
+            p.grad = torch.zeros_like(p)
+        optimizer.step()  # the moments exist, as after a train call
+        blocking, commit = [], []
+        for i in range(CKPT_SAVES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = buddy.save_checkpoint(f"save{i}")
+            t1 = time.perf_counter()
+            buddy.wait_for_checkpoints()
+            blocking.append((t1 - t0) * 1e3)
+            commit.append((time.perf_counter() - t0) * 1e3)
+        out[backend] = {"blocking_ms": statistics.median(blocking),
+                        "commit_ms": statistics.median(commit),
+                        "bytes": os.path.getsize(path)}
+        model.params.zero_grad(set_to_none=True)
+    return out
+
+
 def phase_resume(pf_kernels, pf_estimate, work, trained) -> dict:
     """--resume on the train CLI's experiment: (a) finished, it trains
     nothing and restores phase4 bit for bit; (b) with phase3.pt and
-    phase4.pt deleted, it restores phase2 (parameters and step count) and
-    trains phases 3 and 4 only, launching B2 for their train_e2e calls
-    alone."""
+    phase4.pt deleted, under MMF_TPU_CKPT_BACKEND=orbax (the asynchronous
+    backend), it restores phase2 (parameters and step count) and trains
+    phases 3 and 4 only, launching B2 for their train_e2e calls alone, and
+    each checkpoint it writes holds the parameters as they were when its
+    save was called (phase3's write overlaps phase 4's training); (c)
+    finished again on the synchronous backend, it restores the asynchronous
+    phase4, which is (b)'s parameters bit for bit. Then the ms a save blocks
+    its caller under each backend."""
     import os
 
     import numpy as np
@@ -2547,8 +2619,24 @@ def phase_resume(pf_kernels, pf_estimate, work, trained) -> dict:
     meas_before = len(metric_series(work, CLI_EXPERIMENT)["train/pf_measurement"])
     for c in counters.values():
         c.launches = 0
-    results_b, probe_b, wall_b = run_cli(train_door, modules, argv, work)
+    snapshots = SaveSnapshots(Buddy)
+    os.environ["MMF_TPU_CKPT_BACKEND"] = "orbax"
+    try:
+        results_b, probe_b, wall_b = run_cli(train_door, modules, argv, work)
+    finally:
+        os.environ.pop("MMF_TPU_CKPT_BACKEND")
+        snapshots.restore()
     launches_b = {k: c.launches for k, c in counters.items()}
+    final_b = {k: v.detach().cpu().clone()
+               for k, v in eval_helpers.filter_model.params.state_dict().items()}
+    for label in ("phase3", "phase4"):
+        check(same_under(checkpoint_params(work, CLI_EXPERIMENT, label)["params"],
+                         snapshots.params[label], ""),
+              f"resume (b): the asynchronous {label}.pt is not the parameters at its save")
+    check(same_under(final_b, snapshots.params["phase4"], ""),
+          "resume (b): the run's final parameters are not those phase4 was saved with")
+    check(not any(p.endswith(".tmp") for p in os.listdir(ckpt_dir)),
+          f"resume (b): temporary files left {os.listdir(ckpt_dir)}")
     e2e = probe_b.of("train_e2e")
     check([(c["kwargs"]["subsequence_length"], c["kwargs"]["epochs"]) for c in e2e]
           == CLI_E2E["phase3"] + CLI_E2E["phase4"], "resume (b) train_e2e calls")
@@ -2569,6 +2657,19 @@ def phase_resume(pf_kernels, pf_estimate, work, trained) -> dict:
     check(same_under(phase3, phase2["params"], DYNAMICS),
           "resume (b): phase3's dynamics differ from phase2's")
     check(np.isfinite(results_b["raw_rmse"]).all(), f"resume (b) eval {results_b}")
+
+    # (c) Finished, on the synchronous backend, from the asynchronous phase4.
+    os.environ["MMF_TPU_CKPT_BACKEND"] = "msgpack"
+    try:
+        results_c, probe_c, wall_c = run_cli(train_door, modules, argv, work)
+    finally:
+        os.environ.pop("MMF_TPU_CKPT_BACKEND")
+    check(not [c for c in probe_c.calls if c["name"] in CliProbe.TRAIN]
+          and [label for label, _ in probe_c.restores] == ["phase4"],
+          f"resume (c) trained, or restored {probe_c.restores}")
+    check(same_under(eval_helpers.filter_model.params.state_dict(), final_b, ""),
+          "resume (c): the parameters restored from the asynchronous phase4 are not (b)'s")
+    save_times = checkpoint_save_times(eval_helpers.filter_model, work)
     emit({"phase": "resume", "experiment": CLI_EXPERIMENT,
           "finished": {"wall_s": wall_a, "launches": launches_a, "restored": probe_a.restores,
                        "params_equal_phase4": True, "theta_rmse_deg": results_a["theta_rmse_deg"]},
@@ -2576,7 +2677,14 @@ def phase_resume(pf_kernels, pf_estimate, work, trained) -> dict:
                            "expected_b2_launches": want_b2, "restored": probe_b.restores,
                            "measurement_passes": meas, "saves": [s for s, _ in probe_b.saves],
                            "phase3_dynamics_equal_phase2": True,
-                           "theta_rmse_deg": results_b["theta_rmse_deg"]}})
+                           "theta_rmse_deg": results_b["theta_rmse_deg"],
+                           "checkpoint_backend": "orbax",
+                           "saves_equal_snapshots": True,
+                           "save_blocking_ms": snapshots.blocking_ms},
+          "async_restored": {"wall_s": wall_c, "restored": probe_c.restores,
+                             "params_equal_after_phase2_run": True,
+                             "theta_rmse_deg": results_c["theta_rmse_deg"]},
+          "save_times": save_times})
     return {"launches": launches_b}
 
 
@@ -3617,10 +3725,16 @@ def phase_tail_paths(door_models, pf_kernels, device) -> dict:
     return out
 
 
-def phase_new_times(fused_step, pf_kernels, b3_defn, device) -> dict:
+B2_LOOPED_FROM = 257  # B2f and B2b take their looped instance past 256 slots a row
+
+
+def phase_new_times(fused_step, pf_kernels, pf_estimate, b3_defn, device) -> dict:
     """B3 and B5 at their paths' shapes: host-paced time (CUDA events
     around back-to-back calls), device time per launch (torch.profiler), the
-    plain version's time and the bound."""
+    plain version's time and the bound; and the device time per launch of
+    B5's strided kernel (its rows of B45_SHAPES) and of B2f's and B2b's
+    looped instance (the rows of B2_SHAPES past 256 slots), each beside its
+    bound."""
     from torch.profiler import ProfilerActivity, profile
 
     import torch
@@ -3666,6 +3780,32 @@ def phase_new_times(fused_step, pf_kernels, b3_defn, device) -> dict:
                      "device_ms": statistics.median(dev) / 1e3 if dev else None,
                      "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
                      **pf_kernels.b5_launch(n, m, alpha)._asdict()}
+    strided = []
+    for i, (n, m, d, alpha, lead) in enumerate(B45_SHAPES):
+        launch = pf_kernels.b5_launch(n, m, alpha) if m > 1024 else None
+        if launch is None or not launch.strided:
+            continue
+        args = b1_inputs(n, m, d, device, seed=82 + i, lead=lead)
+        us = device_us(lambda: pf_kernels.pf_update_and_resample(*args, alpha=alpha),
+                       "cluster_tail", reps=20)
+        bound, bound_by = tail_bound_ms(n, m, d, alpha < 1.0)
+        strided.append({"shape": [n, m, d], "alpha": alpha, "device_us": us,
+                        "bound_us": bound * 1e3, "bound_by": bound_by, **launch._asdict()})
+    check(len(strided) == 2, f"B5's strided rows of B45_SHAPES: {strided}")
+    out["b5_strided"] = strided
+    looped = []
+    for i, (n, m, d, lead) in enumerate(B2_SHAPES):
+        if m < B2_LOOPED_FROM:
+            continue
+        fwd, bwd = b2_calls(pf_estimate, b2_inputs(n, m, d, device, seed=83 + i, lead=lead))
+        row = {"shape": [n, m, d], "lead": lead}
+        for key, call, name, backward in (("b2f", fwd, "pf_estimate_fwd", False),
+                                          ("b2b", bwd, "pf_estimate_bwd", True)):
+            bound, bound_by = b2_bound_ms(n, m, d, backward)
+            row[key] = {"device_us": device_us(call, name, reps=50),
+                        "bound_us": bound * 1e3, "bound_by": bound_by}
+        looped.append(row)
+    out["b2_looped"] = looped
     emit({"phase": "new_kernel_times", **out, "tf32": False})
     return out
 
@@ -4340,7 +4480,10 @@ SURFACE_KF_T = 3  # the KF bundle's loop: its traced program grows ~430 nodes a 
 SURFACE_CURRICULUM_CLASS = "PushLSTMFilter"
 # Its curriculum's data: the push task's 8 + 8 synthetic trajectories of
 # 100-124 steps (the push phase's; fewer leave fewer windows than a batch).
-SURFACE_CURRICULUM_ENV = {"synth_traj": 8, "synth_t": 100, "timeout": 60.0}
+# The time limit guards against a hung subprocess: train and eval took 52.4
+# s on one H100 host and 60.2 s on another whose untouched phases ran
+# 17-30% slower, so 90 s.
+SURFACE_CURRICULUM_ENV = {"synth_traj": 8, "synth_t": 100, "timeout": 90.0}
 GRID_RTOL = 1e-4  # the likelihood grid, card against CPU: fp32 convs and trunks
 
 
@@ -4998,6 +5141,205 @@ def md_rank_counts(counters):
     return {k: c.launches for k, c in counters.items()}
 
 
+MD_BUNDLE_T, MD_BUNDLE_MICRO = 4, 2  # the pipe x particle bundle's loop
+MD_BUNDLE_REPEATS = 5
+
+
+def md_particle_bundle(rank, world, model, device, workdir, count) -> dict:
+    """A pipelined serving bundle of a pipe x particle grid, exported by rank
+    0 and loaded on every rank (W = 1: a 1 x 1 grid, whose chunk still runs
+    the traced max and sum all-reduces; W = 4: 2 x 2, with the resampling's
+    all-gather), against the live pipelined model from the same seed: two
+    loops bit for bit, no PF kernel launched (the particle-sharded tail is
+    collective), the collectives counted alike; export s, load s, bundle MB
+    and filter-steps/s of both."""
+    import os
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodalfilter_tpu_torch.experiments.export import (
+        export_serving_bundle, load_serving_bundle)
+    from multimodalfilter_tpu_torch.parallel import collectives
+    from multimodalfilter_tpu_torch.parallel.mesh import create_mesh
+
+    pipe = 2 if world % 2 == 0 and world >= 4 else 1
+    grid = create_mesh(axis_names=("pipe", "particle"), shape=(pipe, world // pipe))
+    model.eval()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the particle axis bypasses the kernels
+        model.use_pipeline(grid, num_microbatches=MD_BUNDLE_MICRO)
+    obs, ctrl = sequences(MD_BUNDLE_T, MD_N, seed=47)
+    mean, cov = initial_state(MD_N)
+    path = os.path.join(workdir, "particle_bundle")
+    _, export_s = md_sync_seconds(lambda: export_serving_bundle(
+        model, path, observations=obs, controls=ctrl, mean=mean, covariance=cov), device)
+    served, load_s = md_sync_seconds(lambda: load_serving_bundle(path, seed=0), device)
+    meta = served.meta["pipeline"]
+    check(meta["particle_axis"] == "particle" and meta["shape"] == [pipe, world // pipe],
+          f"rank {rank}: particle bundle meta {meta}")
+    model.generator.manual_seed(0)
+    model.initialize_beliefs(mean=mean, covariance=cov)
+    served.initialize_beliefs(mean=mean, covariance=cov)
+    runs = {"live": model, "bundle": served}
+    estimates, counted, launched = {k: [] for k in runs}, {}, {k: {} for k in runs}
+    for label, facade in runs.items():
+        collectives.reset_counts()
+        for _ in range(2):
+            est, got = count(lambda f=facade: f.forward_loop(observations=obs, controls=ctrl))
+            estimates[label].append(est)
+            for k, v in got.items():
+                launched[label][k] = launched[label].get(k, 0) + v
+        counted[label] = {"+".join(k): v for k, v in collectives.counts.items()}
+    check(all(torch.equal(a, b) for a, b in zip(estimates["live"], estimates["bundle"])),
+          f"rank {rank}: the pipe x particle bundle does not replay the live loop bitwise")
+    check(all(torch.equal(a, b) for a, b in zip(model.belief, served.belief)),
+          f"rank {rank}: the bundle's final belief is not the live loop's")
+    check(all(bool(torch.isfinite(e).all()) and tuple(e.shape) == (MD_BUNDLE_T, MD_N, 3)
+              for e in estimates["bundle"]), f"rank {rank}: bundle estimates {estimates}")
+    steps = 2 * MD_BUNDLE_T // pipe * MD_BUNDLE_MICRO  # two loops of a stage's chunks
+    for label in runs:
+        check(counted[label].get("all_reduce_max+particle") == steps
+              and counted[label].get("all_reduce_sum+particle") == steps,
+              f"rank {rank}: {label} collectives {counted[label]}")
+        check(not any(launched[label].values()),
+              f"rank {rank}: the particle-sharded {label} loop launched {launched[label]}")
+    turns = md_timed_turns(runs, obs, ctrl, device, MD_BUNDLE_REPEATS)
+    loop_s = turns.pop("loop_s")
+    rates = {label: MD_BUNDLE_T * MD_N / statistics.median(s) for label, s in loop_s.items()}
+    probe = {"turns": turns, **md_bundle_probe(model, served, grid, path, obs, ctrl, device)}
+    dist.barrier()
+    model.use_pipeline(None)
+    return {"grid": [pipe, world // pipe], "T": MD_BUNDLE_T, "N": MD_N, "M": EVAL_M,
+            "micro": MD_BUNDLE_MICRO, "export_s": export_s, "load_s": load_s,
+            "bundle_mb": bundle_size_mb(path), "collectives_per_call": meta["collectives"],
+            "collectives_two_loops": counted, "launches": launched["bundle"],
+            "bitwise": True, "filter_steps_per_s": rates, "loop_s": loop_s, "probe": probe}
+
+
+def md_thread_cpu() -> dict:
+    """CPU seconds (user + system) of each thread of this process, by
+    thread id: (name, seconds)."""
+    import os
+
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                stat = f.read()
+        except OSError:  # the thread ended
+            continue
+        name = stat[stat.index("(") + 1:stat.rindex(")")]
+        fields = stat[stat.rindex(")") + 2:].split()
+        out[tid] = (name, (int(fields[11]) + int(fields[12])) / tick)
+    return out
+
+
+def md_bundle_probe(model, served, grid, path, obs, ctrl, device) -> dict:
+    """Where a pipe x particle bundle's loop spends its time, beside the live
+    loop's: both timed again at once (does a slow bundle stay slow?), then
+    with two variants of the bundle, in turns (its program as loaded but not
+    moved to the rank's card, at W = 1 only; its program rebound to the live
+    grid's process groups and run on that grid), each with
+    ``md_timed_turns``' accounting; then one profiled loop of the live model
+    and of the bundle (the operations of most host time)."""
+    import copy
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodalfilter_tpu_torch.experiments.export import LOOP, _bind_groups
+
+    runs = {"live": model, "bundle": served}
+    again = md_timed_turns(runs, obs, ctrl, device, 3)
+    meta = served.meta["pipeline"]
+    on_grid = copy.copy(served)
+    on_grid._mesh = grid
+    on_grid.loop_program = served._load_program(os.path.join(path, LOOP))
+    _bind_groups(on_grid.loop_program, meta, grid)
+    runs["bundle_on_live_groups"] = on_grid
+    if dist.get_world_size() == 1:  # on another rank the program runs on card 0
+        unmoved = copy.copy(served)
+        unmoved.loop_program = torch.export.load(os.path.join(path, LOOP)).module()
+        _bind_groups(unmoved.loop_program, meta, served._mesh)
+        runs["bundle_unmoved"] = unmoved
+    variants = md_timed_turns(runs, obs, ctrl, device, 3)
+    profiles = {}
+    for label in ("live", "bundle"):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            runs[label].forward_loop(observations=obs, controls=ctrl)
+            md_sync(device)
+        events = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                        reverse=True)
+        device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+        profiles[label] = {
+            "self_host_ms": sum(e.self_cpu_time_total for e in events) / 1e3,
+            "self_device_ms": device_us / 1e3,
+            "top": [[e.key, e.count, e.self_cpu_time_total / 1e3] for e in events[:8]]}
+    return {"again": again, "variants": variants, "profile": profiles}
+
+
+def md_timed_turns(runs, obs, ctrl, device, repeats) -> dict:
+    """Each of `runs`' loops timed `repeats` times, in turns: the wall
+    seconds of each loop, and over each label's loops the main thread's CPU
+    seconds and involuntary context switches, the CPU seconds of every
+    thread of the process by name, and the time spent in Python's garbage
+    collector by generation."""
+    import gc
+    import os
+
+    main_tid = os.getpid()  # the main thread's task id
+
+    def switches():
+        with open(f"/proc/self/task/{main_tid}/status") as f:
+            return sum(int(line.split()[1]) for line in f
+                       if line.startswith("nonvoluntary_ctxt_switches"))
+
+    current, started = [None], [0.0]
+    gc_s = {label: {} for label in runs}
+
+    def on_gc(phase, info):
+        if current[0] is None:
+            return
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            key = f"gen{info['generation']}"
+            gc_s[current[0]][key] = gc_s[current[0]].get(key, 0.0) + (
+                time.perf_counter() - started[0])
+
+    loop_s = {label: [] for label in runs}
+    cpu = {label: {} for label in runs}
+    main_cpu_s = {label: 0.0 for label in runs}
+    involuntary = {label: 0 for label in runs}
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(repeats):
+            for label, facade in runs.items():
+                before, c0, t0 = md_thread_cpu(), switches(), time.thread_time()
+                current[0] = label
+                loop_s[label].append(md_sync_seconds(
+                    lambda f=facade: f.forward_loop(observations=obs, controls=ctrl),
+                    device)[1])
+                current[0] = None
+                main_cpu_s[label] += time.thread_time() - t0
+                involuntary[label] += switches() - c0
+                for tid, (name, sec) in md_thread_cpu().items():
+                    used = sec - before.get(tid, (name, 0.0))[1]
+                    if used > 0:
+                        cpu[label][name] = cpu[label].get(name, 0.0) + used
+    finally:
+        gc.callbacks.remove(on_gc)
+    return {"loop_s": loop_s, "main_thread_cpu_s": main_cpu_s,
+            "involuntary_switches": involuntary, "thread_cpu_s": cpu, "gc_s": gc_s}
+
+
 def multidevice_rank(rank, world, spec) -> dict:
     """One rank of the multidevice phase: a world of `world` NCCL ranks, one
     a card, each running every path on its shard at the door model's
@@ -5325,6 +5667,8 @@ def multidevice_rank(rank, world, spec) -> dict:
                              "grad_rtol": grad_rtol,
                              "loss": grads["pipelined"][0], "launches": got}
     md_note(rank, "pipelined BPTT done", start)
+    out["particle_bundle"] = md_particle_bundle(rank, world, pf_model(), device, workdir, count)
+    md_note(rank, "pipe x particle bundle done", start)
     out["launches"] = launches
     return out
 
@@ -5333,7 +5677,8 @@ def phase_multidevice(device, world=None) -> dict:
     """The multi-device paths on W = min(4, cards) NCCL ranks, one a card
     (parallel/launch.py): data-parallel training and eval (per-step and
     fused), particle-sharded eval, pipelined eval and a pipelined BPTT step,
-    each against the same work on one card."""
+    each against the same work on one card; and a pipe x particle serving
+    bundle against the live pipelined loop on every rank."""
     import tempfile
 
     import torch
@@ -5361,7 +5706,8 @@ def phase_multidevice(device, world=None) -> dict:
           "cards": [r["card"] for r in ranks], "nvidia_smi": smi[:world], "wall_s": wall_s,
           **{k: first[k] for k in ("train", "train_counts", "train_launches", "b2_along_path",
                                    "eval", "eval_fused", "b1_along_path", "particle_sharded",
-                                   "pipelined", "pipelined_bptt", "launches")}})
+                                   "pipelined", "pipelined_bptt", "particle_bundle",
+                                   "launches")}})
     return first["launches"]
 
 
@@ -5474,7 +5820,7 @@ def main(argv=None) -> int:
     times = phase_times(main_path["model"], pf_kernels, device)
     if old is not None:
         phase_yardstick(old, pf_kernels, pf_module, main_path["model"], device)
-    new_times = phase_new_times(fused_step, pf_kernels, b3_check["defn"], device)
+    new_times = phase_new_times(fused_step, pf_kernels, pf_estimate, b3_check["defn"], device)
     b2_times, rates = phase_train_times(
         train_path["model"], train_path["trajectories"], pf_estimate, device)
     if old is not None:

@@ -91,3 +91,10 @@ class TrajectoriesFile:
     def abandon_trajectory(self) -> None:
         """Drop the buffered timesteps without writing them."""
         self._pending = {}
+
+    def clear(self) -> None:
+        """Empty the open file: every trajectory goes, and the count is 0."""
+        f = self._require_open()
+        for k in list(f.keys()):
+            del f[k]
+        f.attrs["count"] = 0

@@ -15,20 +15,48 @@ the JAX package's paths do. JAX checkpoints (``.ckpt``, msgpack) are not
 read here: convert their params with ``weights.params_from_jax``.
 Directories are created when first written to.
 
+Two checkpoint backends write that one format, chosen by
+``Buddy(checkpoint_backend=...)`` or else ``MMF_TPU_CKPT_BACKEND``, with
+the JAX package's names so that one launcher environment means the same to
+both packages:
+
+- ``msgpack`` (the default): ``save_checkpoint`` writes the file before it
+  returns (the JAX package's msgpack file; here ``torch.save``).
+- ``orbax`` (the JAX package's asynchronous orbax writer; here a writer
+  thread): ``save_checkpoint`` copies the parameters, the step count and
+  the named optimizers' state onto the host (on CUDA, copies enqueued on
+  the stream ahead of any later work), starts the write and returns, so
+  the write overlaps what runs next and the parameters may change in place
+  at once. The thread writes a temporary file beside the checkpoint
+  and renames it into place, so a reader never sees a partial file.
+  ``wait_for_checkpoints`` joins the write in flight, and every read calls
+  it first; an error on the writer thread is raised there, or at the next
+  save or read. A save joins the write before it, so writes commit in
+  order. The thread is not a daemon: a process that exits with a write in
+  flight finishes it.
+
+Reads take either backend's files alike, so no format is detected.
+
 In a multi-device run (``torch.distributed`` initialised) rank 0 alone
-writes checkpoints, metadata and logs; after a checkpoint every rank waits
-at a barrier, so that any rank may then read it. The other ranks keep
-their metadata in memory.
+writes checkpoints, metadata and logs. After a synchronous save every rank
+waits at a barrier, so that any rank may then read it. Under ``orbax`` that
+barrier moves into ``wait_for_checkpoints``: every rank records the save in
+flight, rank 0 joins its writer, then every rank meets at the barrier. So
+a save, a read or a wait after an asynchronous save is collective: every
+rank makes it together, as the CLIs do. The other ranks keep their
+metadata in memory.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Any, Dict, Optional
 
 import torch
 
+from .._device import Device, resolve_device
 from ..parallel.mesh import barrier, is_writer
 from ..train.optim import load_optimizer_state
 from ..utils.pytree import path_matches_prefix, torch_path_segments
@@ -38,6 +66,35 @@ DEFAULT_CHECKPOINT_DIR = "checkpoints"
 DEFAULT_METADATA_DIR = "metadata"
 DEFAULT_LOG_DIR = "logs"
 CHECKPOINT_SUFFIX = ".pt"
+CHECKPOINT_BACKENDS = ("msgpack", "orbax")
+
+
+def _to_host(tree):
+    """A copy of `tree` (dicts, lists and tuples of tensors and other
+    values) with every tensor copied to host memory. A CUDA tensor's copy
+    is enqueued on its stream (into pinned memory) and not waited for."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            return tree.detach().to("cpu", non_blocking=True)
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def _write_atomically(state, path: str) -> None:
+    """``torch.save`` to a temporary name of this process beside `path`,
+    then a rename onto `path`."""
+    directory, name = os.path.split(path)
+    tmp = os.path.join(directory, f".{name}.{os.getpid()}.tmp")
+    try:
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 class _OptimizerDict(dict):
@@ -63,8 +120,21 @@ class Buddy:
         checkpoint_dir: str = DEFAULT_CHECKPOINT_DIR,
         metadata_dir: str = DEFAULT_METADATA_DIR,
         log_dir: str = DEFAULT_LOG_DIR,
+        checkpoint_backend: Optional[str] = None,
+        device: Device = None,
         verbose: bool = True,
     ):
+        backend = checkpoint_backend or os.environ.get("MMF_TPU_CKPT_BACKEND", "msgpack")
+        if backend not in CHECKPOINT_BACKENDS:
+            raise ValueError(
+                f"checkpoint_backend must be 'msgpack' or 'orbax', got {backend!r}")
+        self._checkpoint_backend = backend
+        # The asynchronous backend's write in flight: its thread, and the
+        # error it raised; every rank's record that a save is in flight.
+        self._writer: Optional[threading.Thread] = None
+        self._write_error: Optional[BaseException] = None
+        self._save_in_flight = False
+        self._device = device
         self.experiment_name = experiment_name
         self._checkpoint_dir = checkpoint_dir
         self._metadata_dir = metadata_dir
@@ -93,6 +163,19 @@ class Buddy:
         if self._model is None:
             raise RuntimeError("No model attached")
         return self._model
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the attached model's parameters; before a model is
+        attached, the device the port's entry points choose (``cuda:0``, or
+        the `device` this buddy was given). Raises where CUDA is missing and
+        no device was given."""
+        if self._model is not None:
+            return next(self._model.params.parameters()).device
+        device = resolve_device(self._device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
 
     # -- optimizer steps counter ----------------------------------------------
     @property
@@ -139,6 +222,11 @@ class Buddy:
         return os.path.join(self._checkpoint_dir, name, label + CHECKPOINT_SUFFIX)
 
     def save_checkpoint(self, label: Optional[str] = None) -> str:
+        """Write the checkpoint `label` (default: the step count) and return
+        its path; under ``orbax`` the write is still in flight."""
+        if self._checkpoint_backend == "orbax":
+            return self._save_checkpoint_async(label)
+        self.wait_for_checkpoints()
         state = {
             "params": self.model.params.state_dict(),
             "steps": self._steps,
@@ -154,8 +242,60 @@ class Buddy:
         barrier()
         return path
 
+    def _save_checkpoint_async(self, label: Optional[str]) -> str:
+        # The write before this one commits first (and its error surfaces).
+        self.wait_for_checkpoints()
+        path = self._checkpoint_path(label)
+        if is_writer():
+            # The snapshot: host copies, so the optimizer step that follows
+            # may overwrite the parameters and moments in place. On CUDA
+            # the copies are enqueued on the stream ahead of that step, and
+            # the writer waits for them.
+            state = _to_host({
+                "params": self.model.params.state_dict(),
+                "steps": self._steps,
+                "optimizers": {name: opt.state_dict()
+                               for name, opt in self._optimizer_dict.items()},
+            })
+            device = self.device
+            copied = (torch.cuda.current_stream(device).record_event()
+                      if device.type == "cuda" else None)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            self._writer = threading.Thread(target=self._write, args=(state, path, copied),
+                                            name=f"checkpoint {path}")
+            self._writer.start()
+            if self._verbose:
+                print(f"[buddy] checkpoint save started: {path}")
+        self._save_in_flight = True
+        return path
+
+    def _write(self, state, path: str, copied) -> None:
+        try:
+            if copied is not None:
+                copied.synchronize()
+            _write_atomically(state, path)
+        except BaseException as exc:  # raised again by wait_for_checkpoints
+            self._write_error = exc
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until every asynchronous save has committed, and raise the
+        writer's error if it failed. In a multi-device run every rank waits
+        at a barrier for rank 0's writes (every rank calls this together).
+        Nothing to do on the ``msgpack`` backend or with no save in flight."""
+        if not self._save_in_flight:
+            return
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        self._save_in_flight = False
+        barrier()
+        error, self._write_error = self._write_error, None
+        if error is not None:
+            raise error
+
     def _read_checkpoint(self, label: Optional[str],
                          experiment_name: Optional[str] = None) -> Dict[str, Any]:
+        self.wait_for_checkpoints()
         path = self._checkpoint_path(label, experiment_name)
         if not os.path.exists(path):
             if label is not None:

@@ -41,21 +41,34 @@ The load side imports ``ops`` (which registers the custom ops), ``types``
 and the collectives of ``parallel`` only: no model zoo, no ``filtering``. A
 bundle exported for CUDA raises where CUDA is missing.
 
-A model with a temporal pipeline configured (``use_pipeline``, with a
-"data" axis or without) exports as a pipelined bundle: ``loop.pt2`` is one
-stage's program, the per-step loop over a T/P chunk of one microbatch
-(shapes are static, so T must divide over the stages at export), and
-``meta.json`` records the mesh's axes and shape, the stages and the
-microbatches. Loaded in a world of the recorded size (``torchrun
---nproc-per-node N``), ``ServingBundle.forward_loop`` runs the pipeline's
-schedule and relay (``parallel/schedule.py``) around that program on each
-rank, with the live model's global draws, and returns the global estimates.
-A pipeline with a "particle" axis does not export: its chunk holds
-collectives.
+A model with a temporal pipeline configured (``use_pipeline`` on a 1-, 2-
+or 3-D grid of "data", "pipe" and "particle" axes) exports as a pipelined
+bundle: ``loop.pt2`` is one stage's program, the per-step loop over a T/P
+chunk of one microbatch (shapes are static, so T must divide over the
+stages at export), and ``meta.json`` records the mesh's axes and shape, the
+pipe, data and particle axes, the stages and the microbatches. Loaded in a
+world of the recorded size (``torchrun --nproc-per-node N``),
+``ServingBundle.forward_loop`` runs the pipeline's schedule and relay
+(``parallel/schedule.py``) around that program on each rank, with the live
+model's global draws, and returns the global estimates on every rank.
+
+With a "particle" axis the chunk is the particle-sharded loop over one
+block of M/Q particles (``parallel/particle_sharding.py``), and its
+collectives (a max and a sum all-reduce a step, and the resampling's
+all-gather) are in the program as functional collectives. The program
+takes the block's place on the axis as an input, and names each
+collective's process group by the exporting rank's name for it: the meta
+records those names (``groups``), and the load rebinds them to this rank's
+groups of the rebuilt mesh, raising where the program and the meta do not
+match. The meta also records the collectives of one program call, which
+``collectives.counts`` adds at every call. A mesh with a particle axis and
+no pipeline is a (1, Q) pipe x particle grid, as in the JAX package, where
+``use_pipeline`` needs a pipe axis.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 from typing import Any, Dict, List
@@ -85,17 +98,19 @@ def _spec_tree(x):
     return {k: _spec(v) for k, v in x.items()} if isinstance(x, dict) else _spec(x)
 
 
-def _draw_specs(defn, n: int, t: int) -> Dict[str, List[Any]]:
+def _draw_specs(defn, n: int, t: int, stratified: bool = False) -> Dict[str, List[Any]]:
     """The draws of ``defn``'s eval ``initialize_beliefs`` and
     ``forward_loop`` over N trajectories of T steps, in the order the
     facade makes them: [kind, shape]. A particle filter draws its initial
-    particles' noise, then each loop's process noise and uniforms; the other
+    particles' noise, then each loop's process noise and uniforms (with
+    `stratified`, a particle-sharded loop's, one offset a row); the other
     filters draw nothing."""
     if not hasattr(defn, "num_particles"):
         return {"init": [], "loop": []}
     m, d = defn.num_particles(False), defn.state_dim
     return {"init": [["normal", [n, m, d]]],
-            "loop": [["normal", [t, n * m, d]], ["uniform", [t, n, m]]]}
+            "loop": [["normal", [t, n * m, d]],
+                     ["uniform", [t, n] if stratified else [t, n, m]]]}
 
 
 def _structure(belief):
@@ -188,7 +203,9 @@ def export_serving_bundle(filter_model, path: str, *, observations, controls,
     d = defn.state_dim
     mean = example(torch.zeros(n, d) if mean is None else mean)
     covariance = example(torch.eye(d).repeat(n, 1, 1) if covariance is None else covariance)
-    draws = _draw_specs(defn, n, t)
+    layout = filter_model._layout(n) if getattr(filter_model, "_pipeline", None) else None
+    particle_axis = None if layout is None else layout.particle_axis
+    draws = _draw_specs(defn, n, t, stratified=particle_axis is not None)
 
     def fake_draws(kind):
         return [torch.zeros(shape, device=filter_model.device) for _, shape in draws[kind]]
@@ -208,15 +225,17 @@ def export_serving_bundle(filter_model, path: str, *, observations, controls,
                                             if draws["init"] else {}))
     structure, leaves = _structure(belief)
 
-    if getattr(filter_model, "_pipeline", None) is None:
+    if layout is None:
         pipeline, loop_defn = None, defn
         loop_args = (tuple(leaves), observations, controls, *fake_draws("loop"))
-    else:  # the program of one stage's chunk of one microbatch
-        pipeline, chunk = _pipeline_chunk(filter_model, n, t, draws)
-        loop_defn, steps, rows = chunk["defn"], chunk["steps"], chunk["rows"]
-        loop_args = (tuple(x[:rows] for x in leaves),
+    else:  # the program of one stage's chunk of one microbatch (and particle block)
+        pipeline, chunk = _pipeline_chunk(filter_model, layout, n, t, draws)
+        loop_defn, steps, rows, cols = chunk["defn"], chunk["steps"], chunk["rows"], chunk["cols"]
+        loop_args = (tuple(x[:rows, :cols] for x in leaves) if particle_axis else
+                     tuple(x[:rows] for x in leaves),
                      {k: v[:steps, :rows].contiguous() for k, v in observations.items()},
                      controls[:steps, :rows].contiguous(), *chunk["draws"])
+    from ..parallel import collectives
     from ..parallel.mesh import barrier, is_writer
 
     if not is_writer():  # in a multi-device run rank 0 traces and writes the bundle
@@ -225,13 +244,32 @@ def export_serving_bundle(filter_model, path: str, *, observations, controls,
 
     def loop_fn(leaves, observations, controls, *loop_draws):
         belief = _rebuild(structure, iter(leaves))
-        kwargs = dict(zip(("eps_seq", "uniforms_seq"), loop_draws))
-        belief, estimates = loop_defn.forward_loop(belief, observations, controls,
-                                                   train=False, enabled=enabled, **kwargs)
+        if particle_axis is None:
+            kwargs = dict(zip(("eps_seq", "uniforms_seq"), loop_draws))
+            belief, estimates = loop_defn.forward_loop(belief, observations, controls,
+                                                       train=False, enabled=enabled, **kwargs)
+        else:
+            from ..parallel.particle_sharding import particle_sharded_loop
+
+            eps, u0, block_index = loop_draws
+            belief, estimates = particle_sharded_loop(
+                loop_defn, layout.mesh, belief, observations, controls, train=False,
+                eps_seq=eps, u0_seq=u0, enabled=enabled, axis_name=particle_axis,
+                block_index=block_index)
         return tuple(_structure(belief)[1]), estimates
 
     init = _program(filter_model, init_fn, params, (mean, covariance, *fake_draws("init")))
-    loop = _program(filter_model, loop_fn, params, loop_args)
+    # The trace runs the chunk's Python once: the collectives it counts are
+    # one call's, which the bundle adds at each of its calls.
+    before = collectives.counts.copy()
+    try:
+        loop = _program(filter_model, loop_fn, params, loop_args)
+        per_call = collectives.counts - before
+    finally:
+        collectives.counts.clear()
+        collectives.counts.update(before)
+    if pipeline is not None:
+        pipeline["collectives"] = sorted([op, axis, n] for (op, axis), n in per_call.items())
     fused = None
     if getattr(loop_defn, "fused_step", False):
         fused = fused_step.packing_report() is None
@@ -264,19 +302,16 @@ def export_serving_bundle(filter_model, path: str, *, observations, controls,
     return path
 
 
-def _pipeline_chunk(filter_model, n: int, t: int, draws):
-    """(the meta's "pipeline" record, the chunk program's def, steps, rows
-    and example draws) of a model with a pipeline configured."""
+def _pipeline_chunk(filter_model, layout, n: int, t: int, draws):
+    """(the meta's "pipeline" record, the chunk program's def, steps, rows,
+    particle columns and example draws) of a model with a pipeline
+    configured on `layout`."""
     import dataclasses
 
+    from ..parallel import collectives
     from ..parallel.mesh import axis_names, axis_size
 
-    layout = filter_model._layout(n)
-    mesh = layout.mesh
-    if layout.particle_axis is not None:
-        raise ValueError("a pipeline with a 'particle' axis does not export: its chunk "
-                         "holds the particle-sharded step's collectives (ROADMAP A13's "
-                         "rest: pipelined export of a particle axis)")
+    mesh, particle_axis = layout.mesh, layout.particle_axis
     stages, rows = axis_size(mesh, layout.pipe_axis), axis_size(mesh, layout.data_axis)
     if t % stages:
         raise ValueError(f"a pipelined bundle needs T ({t}) divisible by the stage count "
@@ -286,14 +321,28 @@ def _pipeline_chunk(filter_model, n: int, t: int, draws):
     if hasattr(defn, "fused_step"):  # per-step chunks, as the live pipeline runs them
         defn = dataclasses.replace(defn, fused_step=False)
     device = filter_model.device
-    chunk_draws = []
+    cols, chunk_draws = None, []
+    if particle_axis is not None:
+        m, shards = defn.num_particles(False), axis_size(mesh, particle_axis)
+        if m % shards:
+            raise ValueError(f"M={m} particles do not split over the {shards}-way "
+                             f"{particle_axis!r} axis")
+        cols = m // shards
     for kind, shape in draws["loop"]:
         per_row = shape[1] // n
+        if particle_axis is not None and kind == "normal":  # the block's particles
+            per_row //= axis_size(mesh, particle_axis)
         chunk_draws.append(torch.zeros([steps, rows * per_row] + shape[2:], device=device))
+    if particle_axis is not None:  # the block's place on the axis
+        chunk_draws.append(torch.zeros((), device=device))
     record = {"axes": list(axis_names(mesh)), "shape": list(mesh.mesh.shape),
               "pipe_axis": layout.pipe_axis, "data_axis": layout.data_axis,
+              "particle_axis": particle_axis,
+              "groups": ({particle_axis: collectives.group_name(mesh, particle_axis)}
+                         if particle_axis is not None else {}),
               "stages": stages, "microbatches": layout.micro}
-    return record, {"defn": defn, "steps": steps, "rows": rows, "draws": chunk_draws}
+    return record, {"defn": defn, "steps": steps, "rows": rows, "cols": cols,
+                    "draws": chunk_draws}
 
 
 # ---------------------------------------------------------------------------
@@ -313,11 +362,15 @@ class ServingBundle:
             raise ValueError(f"serving bundle format {self.meta['format']} != "
                              f"supported {_FORMAT_VERSION}")
         self.device = torch.device(self.meta["device"])
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"{path} was exported for CUDA, which is not available "
-                               "here; export a bundle on the CPU to serve there")
-        self.init_program = torch.export.load(os.path.join(path, INIT)).module()
-        self.loop_program = torch.export.load(os.path.join(path, LOOP)).module()
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"{path} was exported for CUDA, which is not available "
+                                   "here; export a bundle on the CPU to serve there")
+            # This process's card (a rank's own): the programs create
+            # tensors on the card they were traced on, so they move here.
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.init_program = self._load_program(os.path.join(path, INIT))
+        self.loop_program = self._load_program(os.path.join(path, LOOP))
         self.params = torch.load(os.path.join(path, PARAMS), weights_only=True,
                                  map_location=self.device)
         # StatefulFilter's draws: one generator on the device, seeded so.
@@ -331,6 +384,16 @@ class ServingBundle:
 
             self._mesh = create_mesh(axis_names=pipeline["axes"], shape=pipeline["shape"],
                                      device=self.device)
+            _bind_groups(self.loop_program, pipeline, self._mesh)
+
+    def _load_program(self, path: str):
+        program = torch.export.load(path)
+        if self.device.type == "cuda":
+            from torch.export.passes import move_to_device_pass
+
+            cards = {f"cuda:{i}": str(self.device) for i in range(torch.cuda.device_count())}
+            program = move_to_device_pass(program, {"cuda": str(self.device), **cards})
+        return program.module()
 
     @property
     def state_dim(self) -> int:
@@ -382,10 +445,11 @@ class ServingBundle:
 
     def _pipelined_loop(self, observations, controls, draws):
         """The pipeline's schedule around the exported chunk program: this
-        rank's rows (data axis), its stage's time chunk, each microbatch's
-        rows of the global draws (a normal draw holds a row's particles
-        together, a uniform draw a row's slots); the estimates and the final
-        belief gathered over the data axis."""
+        rank's rows (data axis) and particle block (particle axis), its
+        stage's time chunk, each microbatch's rows of the global draws (a
+        normal draw holds a row's particles together, a uniform draw a row's
+        slots or its offset), as the live loop takes them; the estimates and
+        the final belief gathered over the particle and data axes."""
         from ..parallel import collectives
         from ..parallel.mesh import axis_index, axis_size, block
         from ..parallel.schedule import run_schedule
@@ -393,27 +457,81 @@ class ServingBundle:
         pipeline, mesh = self.meta["pipeline"], self._mesh
         t, n = controls.shape[:2]
         pipe, data = pipeline["pipe_axis"], pipeline["data_axis"]
+        particle = pipeline.get("particle_axis")
         rows = block(n, mesh, data)
         t_loc = t // axis_size(mesh, pipe)
         span = slice(axis_index(mesh, pipe) * t_loc, (axis_index(mesh, pipe) + 1) * t_loc)
         observations = {k: v[span, rows] for k, v in observations.items()}
         controls = controls[span, rows]
         draws = [d[span].reshape((t_loc, n, -1) + tuple(d.shape[2:]))[:, rows] for d in draws]
+        leaves = [x[rows] for x in self._leaves]
+        extra = ()
+        if particle is not None:
+            cols = block(leaves[0].shape[1], mesh, particle)
+            draws[0] = draws[0][:, :, cols]  # the block's particles' noise
+            leaves = [x[:, cols] for x in leaves]
+            extra = (torch.tensor(float(axis_index(mesh, particle)), device=self.device),)
+        per_call = collections.Counter(
+            {(op, axis): count for op, axis, count in pipeline.get("collectives", [])})
 
         def run_chunk(mine, mb):
             chunk_draws = [d[:, mb].reshape((t_loc, -1) + tuple(d.shape[3:])) for d in draws]
             leaves, est = self.loop_program(
                 self.params, tuple(mine), {k: v[:, mb].contiguous() for k, v in
                                            observations.items()},
-                controls[:, mb].contiguous(), *chunk_draws)
+                controls[:, mb].contiguous(), *chunk_draws, *extra)
+            collectives.counts.update(per_call)
             return list(leaves), est
 
         with torch.no_grad():
-            final, est = run_schedule(mesh, pipe, pipeline["microbatches"],
-                                      [x[rows] for x in self._leaves], run_chunk, train=False)
+            final, est = run_schedule(mesh, pipe, pipeline["microbatches"], leaves, run_chunk,
+                                      train=False)
             est = collectives.all_gather(est, mesh, data, dim=1)
+            if particle is not None:
+                final = [collectives.all_gather(x, mesh, particle, dim=1) for x in final]
             final = [collectives.all_gather(x, mesh, data) for x in final]
         return final, est
+
+
+def _bind_groups(program, pipeline, mesh) -> None:
+    """Point the collectives of a pipelined bundle's chunk `program` at this
+    rank's process groups of the rebuilt `mesh`. The program names each
+    group as the exporting rank named it, which the meta records by axis
+    (``groups``); names differ between processes and ranks, so each is
+    replaced by this rank's group of the same axis. Raises ValueError where
+    the program holds collectives over a group the meta does not record, or
+    where an axis's collectives in the program are not those the meta
+    counts."""
+    from ..parallel.collectives import group_name
+
+    recorded = pipeline.get("groups", {})
+    axis_of = {name: axis for axis, name in recorded.items()}
+    want = collections.Counter()
+    for _, axis, count in pipeline.get("collectives", []):
+        want[axis] += count
+    found, unknown = collections.Counter(), []
+    for node in program.graph.nodes:
+        target = node.target
+        if (node.op != "call_function" or getattr(target, "namespace", None) != "_c10d_functional"
+                or "wait" in target.__name__):
+            continue
+        index = [a.name for a in target._schema.arguments].index("group_name")
+        axis = axis_of.get(node.args[index])
+        if axis is None:
+            unknown.append((str(target), node.args[index]))
+            continue
+        found[axis] += 1
+        node.update_arg(index, group_name(mesh, axis))
+    for axis in sorted(set(want) | set(found)):
+        if found[axis] != want[axis]:
+            raise ValueError(
+                f"the bundle's {axis!r} axis: its program holds {found[axis]} collectives "
+                f"over the recorded group {recorded.get(axis)!r} and its meta counts "
+                f"{want[axis]} a call: the program and the meta do not match")
+    if unknown:
+        raise ValueError(f"the bundle's program runs collectives over process groups its "
+                         f"meta records for no axis (recorded {recorded}): {unknown}")
+    program.recompile()
 
 
 def load_serving_bundle(path: str, seed: int = 0) -> ServingBundle:

@@ -17,6 +17,18 @@ once for each kind of use. The max all-reduce takes
 detached values, as JAX's ``stop_gradient`` on ``pmax``
 (``particle_sharding.py:158-163``): a stabiliser whose gradient cancels.
 
+The forwards of the max and sum all-reduces and of the all-gather are
+PyTorch's functional collectives: the ``_c10d_functional`` ops, each
+followed by ``wait_tensor``. They compute what the in-place c10d calls
+compute (the same backend collective on a copy of the input), and
+``make_fx`` traces them into a graph that ``torch.export`` saves, so a
+serving bundle's chunk program holds the particle-sharded step's
+collectives (``experiments/export.py``). Such a graph names each
+collective's process group by the string ``ProcessGroup.group_name``,
+which differs from process to process and from rank to rank; the bundle
+records the names it traced and rebinds them on load. The backwards stay
+the in-place c10d calls.
+
 The belief relay of the pipeline is a pair of autograd functions: the
 forward sends a belief to the next stage and receives from the previous
 one, the backward sends the cotangent back. A stage posts its sends and
@@ -27,7 +39,8 @@ first), so the pairs match on both sides without tags.
 ``counts`` counts each collective by (operation, axis) as it is called:
 one gradient all-reduce per data-parallel optimizer step, a max and a sum
 all-reduce per particle-sharded step and an all-gather in eval, one relay
-per pipeline schedule step.
+per pipeline schedule step. A traced call counts once, at trace time; a
+serving bundle adds its program's recorded counts at every call.
 """
 
 from __future__ import annotations
@@ -61,6 +74,17 @@ def _group(mesh, axis: str):
     return mesh.get_group()
 
 
+def group_name(mesh, axis: str) -> str:
+    """The name of `mesh`'s axis `axis`'s process group, as a traced
+    functional collective records it."""
+    return (_group(mesh, axis) or dist.group.WORLD).group_name
+
+
+def _all_reduce(x: torch.Tensor, op: str, name: str) -> torch.Tensor:
+    out = torch.ops._c10d_functional.all_reduce(x.contiguous(), op, name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
 def all_reduce_sum_(x: torch.Tensor, mesh, axis: str) -> None:
     """Sum `x` in place over `axis` (no autograd)."""
     counts[("all_reduce_sum", axis)] += 1
@@ -69,9 +93,8 @@ def all_reduce_sum_(x: torch.Tensor, mesh, axis: str) -> None:
 
 class _AllReduceSumSplit(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, axis):
-        out = x.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    def forward(ctx, x, name, group, axis):
+        out = _all_reduce(x, "sum", name)
         ctx.group, ctx.axis = group, axis
         return out, out.clone()
 
@@ -80,7 +103,7 @@ class _AllReduceSumSplit(torch.autograd.Function):
         grad = grad_sharded.contiguous().clone()
         counts[("all_reduce_sum_grad", ctx.axis)] += 1
         dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
-        return grad + grad_replicated, None, None
+        return grad + grad_replicated, None, None, None
 
 
 def all_reduce_sum_split(x: torch.Tensor, mesh, axis: str):
@@ -88,24 +111,26 @@ def all_reduce_sum_split(x: torch.Tensor, mesh, axis: str):
     (identity backward), the second for uses that differ by rank (the
     backward sums its cotangent over the axis). One all-reduce forward."""
     counts[("all_reduce_sum", axis)] += 1
-    return _AllReduceSumSplit.apply(x, _group(mesh, axis), axis)
+    return _AllReduceSumSplit.apply(x, group_name(mesh, axis), _group(mesh, axis), axis)
 
 
 def all_reduce_max(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The max of `x` over `axis`, of detached values."""
+    """The max of `x` over `axis`, of detached values (the functional
+    all-reduce)."""
     counts[("all_reduce_max", axis)] += 1
-    out = x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group(mesh, axis))
-    return out
+    return _all_reduce(x.detach(), "max", group_name(mesh, axis))
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim, size, index):
-        parts = [torch.empty_like(x) for _ in range(size)]
-        dist.all_gather(parts, x.contiguous(), group=group)
+    def forward(ctx, x, name, dim, size, index):
+        out = torch.ops._c10d_functional.all_gather_into_tensor(x.contiguous(), size, name)
+        out = torch.ops._c10d_functional.wait_tensor(out)  # (size * x.shape[0], ...)
         ctx.dim, ctx.index, ctx.length = dim, index, x.shape[dim]
-        return torch.cat(parts, dim=dim)
+        if dim == 0:
+            return out
+        parts = out.reshape((size,) + tuple(x.shape)).movedim(0, dim)
+        return parts.reshape(x.shape[:dim] + (size * x.shape[dim],) + x.shape[dim + 1:])
 
     @staticmethod
     def backward(ctx, grad):
@@ -120,7 +145,7 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
         return x
     counts[("all_gather", axis)] += 1
     index = mesh.get_local_rank(axis)
-    return _AllGather.apply(x, _group(mesh, axis), dim, size, index)
+    return _AllGather.apply(x, group_name(mesh, axis), dim, size, index)
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], mesh, axis: str, src_index: int) -> None:

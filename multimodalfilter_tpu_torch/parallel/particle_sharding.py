@@ -18,6 +18,12 @@ of the global draw, so estimates and gradients are those of the plain
 
 This tail is collective, so B1, B4, B5 and B3 do not run inside it, as the
 JAX package's sharded step bypasses its Pallas tail.
+
+Outside autograd the collectives are the functional ones
+(``collectives.py``), so the eval loop traces into a graph that export
+saves. The one other thing that differs by rank is the block's place on
+the axis, which sets its output slots: a traced loop takes it as a tensor
+input (``block_index``), which a serving bundle feeds each rank.
 """
 
 from __future__ import annotations
@@ -34,12 +40,13 @@ from .mesh import axis_index, axis_size
 
 
 def sharded_pf_step(defn, belief, log_lik_fn, controls, *, mesh, axis_name: str,
-                    train: bool, eps, u0=None, ctrl_features=None):
+                    train: bool, eps, u0=None, ctrl_features=None, block_index=None):
     """One particle-sharded PF step. `belief` is this rank's block, its
     log-weights normalised over the whole axis; `eps` (N*Mp, D) the block's
     noise (row order n*Mp + j); `u0` (N,) the stratified offset, the same on
-    every rank (eval). Returns (block belief, estimate (N, D) replicated
-    over the axis)."""
+    every rank (eval); `block_index` the block's place on the axis (default:
+    this rank's). Returns (block belief, estimate (N, D) replicated over the
+    axis)."""
     particles, log_weights = belief
     n, mp, d = particles.shape
     shards = axis_size(mesh, axis_name)
@@ -66,14 +73,17 @@ def sharded_pf_step(defn, belief, log_lik_fn, controls, *, mesh, axis_name: str,
     log_w = log_w - w_max[:, None] - torch.log(block_sums[:, :1])
     if train:  # no resampling: BPTT keeps the weight recursion
         return ParticleBelief(particles, log_w), estimate
-    return systematic_resample_blocks(particles, log_w, u0, mesh, axis_name), estimate
+    return systematic_resample_blocks(particles, log_w, u0, mesh, axis_name,
+                                      block_index=block_index), estimate
 
 
-def systematic_resample_blocks(particles, log_w, u0, mesh, axis_name: str) -> ParticleBelief:
+def systematic_resample_blocks(particles, log_w, u0, mesh, axis_name: str,
+                               block_index=None) -> ParticleBelief:
     """Global systematic resampling of particle blocks: `particles` (N, Mp,
     D) and `log_w` (N, Mp), this rank's block, normalised over the axis;
-    `u0` (N,) the same on every rank. Returns this rank's Mp output slots
-    and their log-weights, -log M."""
+    `u0` (N,) the same on every rank; `block_index` the block's place on
+    the axis, an int or a 0-dim tensor (default: this rank's). Returns the
+    block's Mp output slots and their log-weights, -log M."""
     n, mp, d = particles.shape
     shards = axis_size(mesh, axis_name)
     m = mp * shards
@@ -86,8 +96,10 @@ def systematic_resample_blocks(particles, log_w, u0, mesh, axis_name: str) -> Pa
     offsets = torch.cumsum(masses, dim=1) - masses  # the mass of the blocks before
     all_cdf = (cdfs + offsets[..., None]).reshape(n, m)
     all_cdf = all_cdf / all_cdf[:, -1:]
-    slots = axis_index(mesh, axis_name) * mp + torch.arange(
-        mp, device=particles.device, dtype=particles.dtype)
+    if block_index is None:
+        block_index = axis_index(mesh, axis_name)
+    slots = block_index * mp + torch.arange(mp, device=particles.device,
+                                            dtype=particles.dtype)
     positions = (u0[:, None] + slots[None, :]) / m
     idx = torch.searchsorted(all_cdf, positions.contiguous()).clamp_(max=m - 1)
     particles = torch.take_along_dim(all_particles, idx[..., None], dim=1)
@@ -99,14 +111,14 @@ def systematic_resample_blocks(particles, log_w, u0, mesh, axis_name: str) -> Pa
 def particle_sharded_loop(defn, mesh, belief, observations_seq, controls_seq, *,
                           train: bool, eps_seq, u0_seq=None,
                           enabled: Optional[Tuple[bool, ...]] = None,
-                          axis_name: str = "particle"):
+                          axis_name: str = "particle", block_index=None):
     """The PF ``forward_loop`` over this rank's particle block. `belief`:
     (N, M/Q, D) particles and their globally normalised log-weights;
     observations (T, N, ...) and controls (T, N, C), whole; `eps_seq` (T,
     N*M/Q, D), the block's noise; `u0_seq` (T, N) in eval, the same on
-    every rank. The encoders run over all T*N frames first, on every rank
-    of the axis (as in the JAX package). Returns (block belief, estimates
-    (T, N, D))."""
+    every rank; `block_index` as ``systematic_resample_blocks`` takes it.
+    The encoders run over all T*N frames first, on every rank of the axis
+    (as in the JAX package). Returns (block belief, estimates (T, N, D))."""
     with torch.set_grad_enabled(train):
         t = controls_seq.shape[0]
         features_seq, ctrl_feat_seq = defn.encode_sequences(
@@ -123,6 +135,7 @@ def particle_sharded_loop(defn, mesh, belief, observations_seq, controls_seq, *,
                 controls_seq[i], mesh=mesh, axis_name=axis_name, train=train,
                 eps=eps_seq[i], u0=None if train else u0_seq[i],
                 ctrl_features=None if ctrl_feat_seq is None else ctrl_feat_seq[i],
+                block_index=block_index,
             )
             estimates.append(estimate)
         return belief, torch.stack(estimates)

@@ -121,6 +121,9 @@ def run(task, curriculum, argv=None, *, cache_dir: Optional[str] = None,
     buddy.add_metadata({"train_end_time": _now()})
     eval_results = eval_helpers.run_eval()
     buddy.add_metadata({"eval_results": eval_results})
+    # The last checkpoint committed (MMF_TPU_CKPT_BACKEND=orbax writes it
+    # beside the eval), and a failed write raised, before the CLI returns.
+    buddy.wait_for_checkpoints()
     return eval_results
 
 

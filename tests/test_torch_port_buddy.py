@@ -229,3 +229,28 @@ def test_know_image_blackout_set_after_construction_matches_jax(models):
 def test_num_parameters_matches_jax(cls, jax_model):
     jm = jax_model if cls == type(jax_model).__name__ else getattr(jdoor, cls)()
     assert getattr(tdoor, cls)(device="cpu").num_parameters() == jm.num_parameters()
+
+
+def test_device_is_the_models_or_the_entry_points(tmp_path, monkeypatch):
+    """With a model, its parameters' device (JAX's Buddy.device is its
+    first device: the CPU here too). Without one, the device the entry
+    points choose: the CPU when asked; cuda:0 by default, and where CUDA is
+    missing a RuntimeError, never a quiet CPU."""
+    model = tdoor.DoorUnimodalParticleFilter(device="cpu")
+    jax_device = JaxBuddy("jax_device", None, checkpoint_dir=str(tmp_path / "c"),
+                          metadata_dir=str(tmp_path / "m"), log_dir=str(tmp_path / "l"),
+                          verbose=False).device
+    assert _buddy(tmp_path, "with_model", model).device == torch.device("cpu")
+    assert jax_device.platform == "cpu"
+    asked = Buddy("asked", None, checkpoint_dir=str(tmp_path / "c"),
+                  metadata_dir=str(tmp_path / "m"), log_dir=str(tmp_path / "l"),
+                  device="cpu", verbose=False)
+    assert asked.device == torch.device("cpu")
+    asked.attach_model(model)
+    assert asked.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _buddy(tmp_path, "default", None).device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert _buddy(tmp_path, "default", None).device == torch.device("cuda", 0)

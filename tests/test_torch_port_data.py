@@ -210,3 +210,56 @@ def test_apply_sequential_rate_matches_jax():
             np.asarray(jax_sequential_rate(images, 3, axis=axis)),
             augment.apply_sequential_rate(torch.from_numpy(images), 3, axis=axis).numpy(),
         )
+
+
+def _write_and_clear(cls, path):
+    """Two trajectories written, the file cleared, one more written; then
+    (count, trajectories) read back through `cls`."""
+    r = np.random.default_rng(5)
+    steps = [[{"pos": r.normal(size=3).astype(np.float32), "flag": np.float32(i % 2)}
+              for i in range(4)] for _ in range(3)]
+    with cls(path, "w") as f:
+        for trajectory in steps[:2]:
+            for step in trajectory:
+                f.add_timestep(step)
+            f.complete_trajectory()
+        assert len(f) == 2
+        f.clear()
+        assert len(f) == 0
+        for step in steps[2]:
+            f.add_timestep(step)
+        f.complete_trajectory()
+    with cls(path) as f:
+        return len(f), list(f)
+
+
+def test_trajectories_file_clear_matches_jax(tmp_path):
+    """clear() empties an open writable file (every trajectory, and the count
+    back to 0), as JAX's TrajectoriesFile.clear does."""
+    from multimodalfilter_tpu_torch.data import TrajectoriesFile
+
+    want_count, want = _write_and_clear(JaxTrajectoriesFile, str(tmp_path / "jax.hdf5"))
+    count, got = _write_and_clear(TrajectoriesFile, str(tmp_path / "port.hdf5"))
+    assert count == want_count == 1
+    assert len(got) == len(want) and all(x.keys() == y.keys() for x, y in zip(got, want))
+    for x, y in zip(got, want):
+        for k in x:
+            assert x[k].dtype == y[k].dtype
+            np.testing.assert_array_equal(x[k], y[k])
+
+
+def test_trajectories_file_write_without_h5py_raises(tmp_path, monkeypatch):
+    """Without h5py a TrajectoriesFile opened for writing raises the
+    ImportError naming h5py and MMF_TPU_SYNTHESIZE_DATA, and writes nothing
+    anywhere: the in-memory set is the cache's (cached_trajectories), never
+    a file's."""
+    monkeypatch.setattr(cache, "_in_memory", {})
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    from multimodalfilter_tpu_torch.data import TrajectoriesFile
+
+    path = str(tmp_path / "port.hdf5")
+    with pytest.raises(ImportError, match="h5py.*MMF_TPU_SYNTHESIZE_DATA"):
+        with TrajectoriesFile(path, "w") as f:
+            f.add_timestep({"pos": np.zeros(3, np.float32)})
+            f.complete_trajectory()
+    assert not os.path.exists(path) and cache._in_memory == {}

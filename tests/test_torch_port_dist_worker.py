@@ -413,6 +413,131 @@ def export_rank_cases(rank, world, inputs):
     return out
 
 
+def export_particle_rank_cases(rank, world, inputs):
+    """Pipelined bundles of grids with a particle axis, in a world of 4 (pipe
+    2 x particle 2) or 8 (data 2 x pipe 2 x particle 2): the bundle against
+    the live pipelined model from the same seed, with the collectives each
+    counts; a ragged T and a bundle whose recorded group name was altered,
+    each raising; and the live loop (micro 1) on JAX's per-shard draws."""
+    import json
+    import shutil
+    import warnings
+
+    from multimodalfilter_tpu_torch.experiments.export import (
+        export_serving_bundle, load_serving_bundle)
+
+    obs, ctrl = tensors(inputs["obs"]), tensors(inputs["controls"])
+    mean, cov = tensors(inputs["mean"]), tensors(inputs["cov"])
+    axes, shape = inputs["axes"], inputs["shape"]
+    mesh = create_mesh(axis_names=axes, shape=shape)
+    out = {}
+    model = door_pf(inputs["params"], m_eval=inputs["m"])
+    model.eval()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the particle axis bypasses the kernels
+        model.use_pipeline(mesh, num_microbatches=2)
+    path = os.path.join(inputs["work"], "grid")
+    export_serving_bundle(model, path, observations=obs, controls=ctrl, mean=mean,
+                          covariance=cov)
+    model.generator.manual_seed(0)
+    model.initialize_beliefs(mean=mean, covariance=cov)
+    collectives.reset_counts()
+    live = model.forward_loop(observations=obs, controls=ctrl)
+    live_counts = dict(collectives.counts)
+    bundle = load_serving_bundle(path, seed=0)
+    bundle.initialize_beliefs(mean=mean, covariance=cov)
+    collectives.reset_counts()
+    served = bundle.forward_loop(observations=obs, controls=ctrl)
+    out["grid"] = {"live": live, "served": served, "meta": bundle.meta["pipeline"],
+                   "live_counts": live_counts, "served_counts": dict(collectives.counts),
+                   "belief": (tuple(model.belief), tuple(bundle.belief))}
+
+    # A T that does not divide over the stages does not export.
+    try:
+        export_serving_bundle(model, os.path.join(inputs["work"], "ragged"),
+                              observations={k: v[:-1] for k, v in obs.items()},
+                              controls=ctrl[:-1], mean=mean, covariance=cov)
+        out["ragged"] = None
+    except ValueError as exc:
+        out["ragged"] = str(exc)
+
+    # A recorded group name that is not the program's: the load raises.
+    altered = os.path.join(inputs["work"], "altered")
+    if rank == 0:
+        shutil.copytree(path, altered)
+        with open(os.path.join(altered, "meta.json")) as f:
+            meta = json.load(f)
+        meta["pipeline"]["groups"]["particle"] = "no such group"
+        with open(os.path.join(altered, "meta.json"), "w") as f:
+            json.dump(meta, f)
+    dist.barrier()
+    try:
+        load_serving_bundle(altered, seed=0)
+        out["altered"] = None
+    except ValueError as exc:
+        out["altered"] = str(exc)
+
+    # The live loop through the functional collectives at micro 1, on the
+    # draws of JAX's particle-sharded step.
+    eps, u0 = tensors(inputs["particle_draws"])
+    out["live_micro1"] = _loop(model, Layout(mesh, "pipe", 1, "data" if "data" in axes else None,
+                                             "particle"),
+                               ParticleBelief(*tensors(inputs["belief"])), obs, ctrl, eps, u0)[1]
+    return out
+
+
+class TinyParams:
+    """A model as ``Buddy`` sees one: ``params``, a module whose state-dict
+    keys are dotted paths ("dynamics_model.w", ...)."""
+
+    def __init__(self, arrays):
+        self.params = torch.nn.ModuleDict({
+            part: torch.nn.ParameterDict({k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+                                          for k, v in leaves.items()})
+            for part, leaves in arrays.items()})
+
+
+def async_checkpoint_rank(rank, world, inputs):
+    """A world of 2 with the asynchronous backend: rank 0's writes are slowed
+    down, so that a rank that read before the commit would find no file or
+    the one before. Both ranks save, change their parameters in place, read
+    the checkpoint back (and one submodule of another), and return what they
+    read."""
+    from multimodalfilter_tpu_torch.experiments import Buddy, buddy as buddy_module
+
+    real = buddy_module._write_atomically
+
+    def slow(state, path):
+        import time
+
+        time.sleep(inputs["delay_s"])
+        real(state, path)
+
+    buddy_module._write_atomically = slow
+    model = TinyParams(inputs["arrays"])
+    buddy = Buddy("async_world", model, checkpoint_dir=inputs["ckpt"],
+                  metadata_dir=inputs["meta"], log_dir=inputs["logs"],
+                  checkpoint_backend="orbax", verbose=False)
+    out = {"saved": {k: v.detach().clone() for k, v in model.params.state_dict().items()}}
+    buddy.increment_steps(3)
+    buddy.save_checkpoint("first")
+    with torch.no_grad():
+        for p in model.params.parameters():
+            p.mul_(2.0).add_(1.0)
+    buddy.save_checkpoint("second")  # joins the first write
+    with torch.no_grad():
+        for p in model.params.parameters():
+            p.zero_()
+    buddy.load_checkpoint("first")
+    out["first"] = {k: v.detach().clone() for k, v in model.params.state_dict().items()}
+    out["steps"] = buddy.optimizer_steps
+    buddy.load_checkpoint_module("measurement_model", label="second")
+    out["surgery"] = {k: v.detach().clone() for k, v in model.params.state_dict().items()}
+    buddy.wait_for_checkpoints()
+    out["files"] = sorted(os.listdir(os.path.join(inputs["ckpt"], "async_world")))
+    return out
+
+
 def fail_while_others_wait(rank, world):
     """Rank 1 fails at once; rank 0 waits in a collective for it forever."""
     if rank == 1:

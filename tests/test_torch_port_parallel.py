@@ -231,16 +231,18 @@ def test_a_failed_rank_fails_the_world_at_once():
 
 
 def test_export_refuses_a_pipeline_with_a_particle_axis(tmp_path):
-    """A pipelined bundle holds one stage's chunk program; with a particle
-    axis that chunk holds collectives, so export refuses it, before any
-    tracing, naming what is missing (pipelined bundles over a pipe or data
-    x pipe grid: test_torch_port_multidevice_export.py)."""
+    """A pipelined bundle with a particle axis holds one stage's chunk
+    program over one particle block, so export refuses a particle axis that
+    the M = 300 eval particles do not divide over, before any tracing,
+    naming the axis (the bundles of pipe x particle grids:
+    test_torch_port_particle_export.py)."""
     from multimodalfilter_tpu_torch.experiments.export import export_serving_bundle
 
     obs, controls = worker.sequences(4, 2)
     pf = tdoor.DoorCrossmodalParticleFilter(device="cpu")
     with pytest.warns(UserWarning, match="bypassed"):
-        pf.use_pipeline(worker.AxisSizes(pipe=2, particle=2))
-    with pytest.raises(ValueError, match="particle"):
+        pf.use_pipeline(worker.AxisSizes(pipe=2, particle=7))
+    with pytest.raises(ValueError, match="M=300 particles do not split over the 7-way "
+                                         "'particle' axis"):
         export_serving_bundle(pf, str(tmp_path / "bundle"), observations=obs, controls=controls)
     assert not (tmp_path / "bundle").exists()
