@@ -31,6 +31,14 @@ from ..ops.pf_estimate import pf_update_estimate, pf_update_estimate_reference
 from ..ops.pf_kernels import SMALL_M_MAX, pf_update_and_resample
 from ..ops.resampling import multinomial_resample, soft_resample
 from ..types import ParticleBelief
+from ..utils.debug import (
+    SPAN_PF_DYNAMICS,
+    SPAN_PF_ENCODE,
+    SPAN_PF_MEASUREMENT,
+    SPAN_PF_STEP,
+    SPAN_PF_TAIL,
+    span,
+)
 from .base import DynamicsDef, FilterDef
 
 
@@ -91,31 +99,42 @@ class ParticleFilterDef(FilterDef):
         """One PF timestep given a log-likelihood closure over the propagated
         particles. `eps` (N*M, D) and `uniforms` (N, M) may be pre-drawn;
         otherwise they are drawn from `generator`."""
-        particles, log_weights = belief
-        n, m, d = particles.shape
+        with span(SPAN_PF_STEP):
+            particles, log_weights = belief
+            n, m, d = particles.shape
 
-        # --- Dynamics propagation (N and M flattened; row order n*M + j) ---
-        flat_particles = particles.reshape(n * m, d)
-        if ctrl_features is not None:
-            # (N, U) -> (N*M, U), each row repeated M times in place, as
-            # jnp.repeat(axis=0) does (Tensor.repeat would tile instead).
-            pred_mean, scale_tril = self.dynamics_model.apply_with_control_features(
-                flat_particles, ctrl_features.repeat_interleave(m, dim=0)
-            )
-        else:
-            pred_mean, scale_tril = self.dynamics_model.apply(
-                flat_particles, controls.repeat_interleave(m, dim=0)
-            )
-        if eps is None:
-            eps = torch.randn(pred_mean.shape, generator=generator,
-                              dtype=pred_mean.dtype, device=pred_mean.device)
-        particles = (
-            pred_mean + torch.einsum("bij,bj->bi", scale_tril, eps)
-        ).reshape(n, m, d)
+            # --- Dynamics propagation (N and M flattened; row order n*M + j) ---
+            with span(SPAN_PF_DYNAMICS):
+                flat_particles = particles.reshape(n * m, d)
+                if ctrl_features is not None:
+                    # (N, U) -> (N*M, U), each row repeated M times in place, as
+                    # jnp.repeat(axis=0) does (Tensor.repeat would tile instead).
+                    pred_mean, scale_tril = self.dynamics_model.apply_with_control_features(
+                        flat_particles, ctrl_features.repeat_interleave(m, dim=0)
+                    )
+                else:
+                    pred_mean, scale_tril = self.dynamics_model.apply(
+                        flat_particles, controls.repeat_interleave(m, dim=0)
+                    )
+                if eps is None:
+                    eps = torch.randn(pred_mean.shape, generator=generator,
+                                      dtype=pred_mean.dtype, device=pred_mean.device)
+                particles = (
+                    pred_mean + torch.einsum("bij,bj->bi", scale_tril, eps)
+                ).reshape(n, m, d)
 
-        # --- Measurement update ---
-        log_liks = log_lik_fn(particles)
+            # --- Measurement update ---
+            with span(SPAN_PF_MEASUREMENT):
+                log_liks = log_lik_fn(particles)
 
+            with span(SPAN_PF_TAIL):
+                return self._step_tail(particles, log_weights, log_liks, train=train,
+                                       uniforms=uniforms, generator=generator)
+
+    def _step_tail(self, particles, log_weights, log_liks, *, train: bool, uniforms,
+                   generator):
+        """The weight update, estimate and (eval) resample of a step."""
+        n, m, _ = particles.shape
         if train:
             # Update and estimate, no resampling during BPTT: the B2 kernels
             # (forward and backward) on CUDA, their plain version on the CPU.
@@ -175,15 +194,17 @@ class ParticleFilterDef(FilterDef):
         gate's log-weights) and the control features (T, N, U), or None when
         the dynamics net does not split."""
         t, n = controls_seq.shape[:2]
-        flat_obs = _tree_map(lambda v: v.reshape((t * n,) + v.shape[2:]), observations_seq)
-        features = self.measurement_model.encode_observations(flat_obs, enabled=enabled)
-        features_seq = _tree_map(lambda v: v.reshape((t, n) + v.shape[1:]), features)
-        ctrl_feat_seq = None
-        if self.dynamics_model.supports_control_hoist:
-            ctrl_feat = self.dynamics_model.encode_controls(
-                controls_seq.reshape((t * n,) + controls_seq.shape[2:])
-            )
-            ctrl_feat_seq = ctrl_feat.reshape((t, n) + ctrl_feat.shape[1:])
+        with span(SPAN_PF_ENCODE):
+            flat_obs = _tree_map(lambda v: v.reshape((t * n,) + v.shape[2:]),
+                                 observations_seq)
+            features = self.measurement_model.encode_observations(flat_obs, enabled=enabled)
+            features_seq = _tree_map(lambda v: v.reshape((t, n) + v.shape[1:]), features)
+            ctrl_feat_seq = None
+            if self.dynamics_model.supports_control_hoist:
+                ctrl_feat = self.dynamics_model.encode_controls(
+                    controls_seq.reshape((t * n,) + controls_seq.shape[2:])
+                )
+                ctrl_feat_seq = ctrl_feat.reshape((t, n) + ctrl_feat.shape[1:])
         return features_seq, ctrl_feat_seq
 
     def forward_loop(self, belief, observations_seq, controls_seq, *,

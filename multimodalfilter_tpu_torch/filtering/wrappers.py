@@ -29,6 +29,7 @@ import torch
 
 from .._device import Device, resolve_device
 from ..types import GaussianBelief
+from ..utils.debug import SPAN_FACADE_FORWARD_LOOP, SPAN_FACADE_INITIALIZE, span
 from ..utils.precision import (
     with_compute_dtype,
     with_fold_tail,
@@ -418,7 +419,7 @@ class StatefulFilter:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def initialize_beliefs(self, *, mean, covariance):
-        with torch.no_grad():
+        with span(SPAN_FACADE_INITIALIZE), torch.no_grad():
             self._belief = self.definition.initialize_beliefs(
                 self._to_device(mean), self._to_device(covariance),
                 train=self._training, generator=self.generator,
@@ -456,13 +457,14 @@ class StatefulFilter:
         and `uniforms_seq` replace the generator's draws (to replay a run)."""
         if self._belief is None:
             raise RuntimeError("Call initialize_beliefs first")
-        self._belief, estimates = self.run_loop(
-            self._belief, self._to_device(observations), self._to_device(controls),
-            eps_seq=None if eps_seq is None else self._to_device(eps_seq),
-            uniforms_seq=None if uniforms_seq is None else self._to_device(uniforms_seq),
-            generator=self.generator,
-        )
-        self._loops_run.add(self.loop_cache_key(estimates.shape[1]))
+        with span(SPAN_FACADE_FORWARD_LOOP):
+            self._belief, estimates = self.run_loop(
+                self._belief, self._to_device(observations), self._to_device(controls),
+                eps_seq=None if eps_seq is None else self._to_device(eps_seq),
+                uniforms_seq=None if uniforms_seq is None else self._to_device(uniforms_seq),
+                generator=self.generator,
+            )
+            self._loops_run.add(self.loop_cache_key(estimates.shape[1]))
         return estimates
 
     def run_loop(self, belief, observations, controls, *, generator,

@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..types import ParticleBelief
+from ..utils.debug import SPAN_FUSED_LAUNCH, SPAN_FUSED_PACK, span
 from ._build import load_library
 from .pf_kernels import pf_update_and_resample_reference
 
@@ -425,11 +426,13 @@ def try_fused_forward(defn, belief, features_seq, ctrl_feat_seq, eps_seq, uni_se
     the packed loop: ``custom_ops.fused_forward_op`` under a tracer."""
     global _last_fallback_reason
     try:
-        ops = pack_operands(defn, features_seq, ctrl_feat_seq, eps_seq, enabled,
-                            belief.particles.shape[1])
+        with span(SPAN_FUSED_PACK):
+            ops = pack_operands(defn, features_seq, ctrl_feat_seq, eps_seq, enabled,
+                                belief.particles.shape[1])
     except Unsupported as exc:
         _last_fallback_reason = str(exc)
         warnings.warn(f"fused_step: {exc}; running the per-step path", stacklevel=3)
         return None
     _last_fallback_reason = None
-    return (run or fused_forward)(ops, belief, uni_seq)
+    with span(SPAN_FUSED_LAUNCH):
+        return (run or fused_forward)(ops, belief, uni_seq)

@@ -1,10 +1,17 @@
 """Utilities of the port (port of ``multimodalfilter_tpu/utils``):
 ``precision.py``, the serving knobs' def rewrites; ``debug.py``, the train
-CLI's debug affordances, the profiler trace and the finiteness guard;
-``conversions.py``, ``pytree.py``, ``slice_wrapper.py`` and ``rng.py``."""
+CLI's debug affordances, the profiler trace, its spans and the finiteness
+guard; ``conversions.py``, ``pytree.py``, ``slice_wrapper.py`` and
+``rng.py``."""
 
 from .conversions import to_device, to_numpy
-from .debug import checkify_filter_step, get_git_commit_hash, pdb_safety_net, profile_trace
+from .debug import (
+    checkify_filter_step,
+    get_git_commit_hash,
+    pdb_safety_net,
+    profile_trace,
+    span,
+)
 from .precision import (
     with_compute_dtype,
     with_fold_tail,
@@ -29,6 +36,7 @@ __all__ = [
     "prng_impl_from_env",
     "profile_trace",
     "set_by_path",
+    "span",
     "to_device",
     "to_numpy",
     "torch_path_segments",

@@ -1,7 +1,9 @@
 """Debug affordances (port of ``multimodalfilter_tpu/utils/debug.py``):
 ``pdb_safety_net`` and ``get_git_commit_hash`` for the train CLI (copies);
-``profile_trace``, a ``torch.profiler`` trace around a hot region; and
-``checkify_filter_step``, a finiteness guard on a filter step's outputs."""
+``profile_trace``, a ``torch.profiler`` trace around a hot region, and
+``span``, a named range inside that trace at a layer boundary of the
+program; and ``checkify_filter_step``, a finiteness guard on a filter
+step's outputs."""
 
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import subprocess
 import sys
 import traceback
 from typing import Optional
+
+import torch
 
 
 def pdb_safety_net() -> None:
@@ -50,8 +54,6 @@ def profile_trace(log_dir: str, enabled: bool = True):
     if not enabled:
         yield None
         return
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -59,6 +61,45 @@ def profile_trace(log_dir: str, enabled: bool = True):
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# The program's spans, one at each layer boundary of an eval loop (PERF.md
+# section 3 names the metric that reads each). The facade: one
+# forward_loop span is one request.
+SPAN_FACADE_INITIALIZE = "mmf.facade.initialize_beliefs"
+SPAN_FACADE_FORWARD_LOOP = "mmf.facade.forward_loop"
+# The hoisted encoder pass over every frame of the loop.
+SPAN_PF_ENCODE = "mmf.pf.encode"
+# One particle-filter step, and its three stages inside it.
+SPAN_PF_STEP = "mmf.pf.step"
+SPAN_PF_DYNAMICS = "mmf.pf.dynamics"
+SPAN_PF_MEASUREMENT = "mmf.pf.measurement"
+SPAN_PF_TAIL = "mmf.pf.tail"
+# The fused route: B3's operands packed, then the packed loop run.
+SPAN_FUSED_PACK = "mmf.fused.pack"
+SPAN_FUSED_LAUNCH = "mmf.fused.launch"
+SPANS = (SPAN_FACADE_INITIALIZE, SPAN_FACADE_FORWARD_LOOP, SPAN_PF_ENCODE, SPAN_PF_STEP,
+         SPAN_PF_DYNAMICS, SPAN_PF_MEASUREMENT, SPAN_PF_TAIL, SPAN_FUSED_PACK,
+         SPAN_FUSED_LAUNCH)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named `name` while a
+    profiler runs (``profile_trace``, or any ``torch.profiler.profile``), on
+    the clock of the trace's device events; otherwise a context that does
+    nothing, at the cost of one check (entering ``record_function`` with no
+    profiler costs ~100 times more). Under a tracer (export, compile,
+    ``make_fx``) it does nothing either, so no profiler op enters a traced
+    program."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    from ..ops.custom_ops import tracing  # ops imports this module
+
+    if tracing():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class FloatCheckError:
@@ -90,8 +131,6 @@ def checkify_filter_step(step_fn):
     read back once."""
 
     def checked(*args, **kwargs):
-        import torch
-
         result = step_fn(*args, **kwargs)
         leaves = []
 

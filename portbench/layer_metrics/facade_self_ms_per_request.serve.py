@@ -1,0 +1,9 @@
+"""``facade_self_ms_per_request.eval``'s reading, for the serving cell, whose rate is an
+end-to-end metric of its own."""
+
+from pathlib import Path
+
+from portbench.harness import load_file_module
+
+read = load_file_module(Path(__file__).with_name("facade_self_ms_per_request.eval.py"),
+                        "portbench_metric_facade_self_ms_per_request").read
